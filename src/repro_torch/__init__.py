@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of the client-side straggler-aware I/O scheduler.
+
+The package mirrors the layout of the JAX package it was ported from
+(``core/``, ``kernels/sched_select/``) so every module has an obvious
+counterpart.  It runs the paper's §4 Monte-Carlo sweep
+(`core.simulate.run_trials`, shared statistic log) with the per-request
+scheduling loop in one hand-written CUDA kernel for Hopper
+(`kernels/sched_select/csrc/sched_stream.cu`).
+
+Every entry point takes ``device`` and defaults to ``"cuda"``; asking for
+CUDA where there is none raises (`resolve_device`).  The plain PyTorch
+versions of the kernels run only for tensors that lie on the CPU.
+"""
+
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -57,3 +57,8 @@ except ImportError:  # offline: stub out the API surface the tests use
     _fake.strategies = _Anything()
     sys.modules["hypothesis"] = _fake
     sys.modules["hypothesis.strategies"] = _fake.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips with a reason without one)")
