@@ -48,8 +48,7 @@ from repro_torch.kernels.sched_select.ref import \
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-BODY_POLICIES = ("minload", "two_random", "ect", "trh", "rr", "two_choice",
-                 "mlml", "nltr")
+BODY_POLICIES = tuple(skernel.POLICY_CODES)
 # (T, M, W, window): T below / not a multiple of the 4 warps per block
 CHECK_SHAPES = ((5, 37, 4, 32), (7, 130, 3, 50), (6, 300, 3, 40))
 
@@ -124,7 +123,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build(skernel.SOURCE)
     print(f"built {skernel.SOURCE} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.BUILD_LOGS.get(skernel.SOURCE, "").splitlines():
+    for line in _build.build_log(skernel.SOURCE).splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             print(f"  ptxas: {line.strip()}")
 
@@ -234,26 +233,26 @@ def main() -> None:
     marks.append(time.perf_counter())
     stage_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
-    # least time for the same work: bytes in and out once over HBM, and the
-    # float32 operations of ect (per request: score add+div, argmin
-    # compare, probs add, est max+select on every lane; per window:
-    # renorm and drain; per stream: 48 bisection passes over N latencies)
-    obj, lens, valid, tables, seeds, rates = kargs
-    t_, n_ = obj.shape
-    m_pad, n_win = tables.shape[-1], rates.shape[1]
-    bytes_moved = (sum(x.numel() * x.element_size()
-                       for x in (obj, lens, valid, tables, rates))
-                   + 4 * t_                                   # seeds
-                   + t_ * n_ * 8                              # choices, lats
-                   + tables.numel() * 4 + rates.numel() * 4   # tables, wl
-                   + t_ * policy_core.MET_PAD * 4)
-    ops = t_ * (n_ * 6 * m_pad + n_win * 5 * m_pad + 48 * n_ * 2)
+    # least time for the same work, over the n_servers real lanes (the
+    # padding to 128 lanes is the kernel's choice, not the function's):
+    # bytes in and out once over HBM — int32/f32/int32 request blocks,
+    # (T, 4, M) tables, (T, W, M) rates, seeds; choices, latencies, tables,
+    # window loads, metrics — and the float32 operations of ect (per
+    # request: score add+div, argmin compare, probs add, est max+select on
+    # every lane; per window: renorm and drain; per stream: 48 bisection
+    # passes over N latencies)
+    t_, n_ = kargs[0].shape
+    m_, n_win = cfg.n_servers, kargs[5].shape[1]
+    bytes_moved = 4 * (3 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_ + t_
+                       + 2 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_
+                       + t_ * policy_core.N_METRICS)
+    ops = t_ * (n_ * 6 * m_ + n_win * 5 * m_ + 48 * n_ * 2)
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     reqs = cfg.n_trials * cfg.n_requests
-    print(f"timing ect, T={t_} N={n_} M_pad={m_pad} on {card}:")
+    print(f"timing ect, T={t_} N={n_} M={m_} on {card}:")
     print(f"  kernel  {kernel_ms:.4f} ms/launch ({reqs / kernel_ms * 1e3:.0f}"
           " requests/s)")
     print(f"  plain   {plain_ms:.2f} ms ({reqs / plain_ms * 1e3:.0f} "

@@ -295,10 +295,16 @@ def trace_straggler_mask(trace: ClusterTrace,
     return (trace.rates < thr).any(dim=-2)
 
 
-def _trial_setup(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
+def _observe(cfg: SimConfig) -> bool:
+    # the degenerate static scenario never observes (static-model parity)
+    return cfg.scenario is not None and cfg.scenario.name != "static"
+
+
+def _prep_trials(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
                  device):
-    """(init_loads, straggler_mask, works, states, traces, seeds) for the
-    whole (T,) batch."""
+    """Stage 1: ``(init_loads, straggler_mask, works, states, traces,
+    seeds)`` for the whole (T,) batch — the reference's vmapped
+    ``_trial_setup``, drawn batch-wide."""
     t = cfg.n_trials
     init, strag_mask = initial_loads(gen, cfg, t, device)
     works = sample_workload(gen, cfg, t, device)
@@ -313,22 +319,6 @@ def _trial_setup(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
     return init, strag_mask, works, state, traces, seeds
 
 
-def _resolved_window_dt(cfg: SimConfig) -> float:
-    return (resolve_window_dt(cfg, cfg.scenario)
-            if cfg.scenario is not None else 0.0)
-
-
-def _observe(cfg: SimConfig) -> bool:
-    # the degenerate static scenario never observes (static-model parity)
-    return cfg.scenario is not None and cfg.scenario.name != "static"
-
-
-def _prep_trials(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
-                 device):
-    """Stage 1: per-trial simulation inputs for the (T,) batch."""
-    return _trial_setup(gen, cfg, log_cfg, device)
-
-
 def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
                   works: Workload, states: SchedState, seeds: torch.Tensor,
                   traces: Optional[ClusterTrace],
@@ -340,18 +330,21 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     res, metrics = engine.run_stream_batch(
         states, works, seeds, policy=policy, log_cfg=log_cfg,
         window_size=cfg.window_size, traces=traces,
-        window_dt=_resolved_window_dt(cfg), observe=_observe(cfg),
+        window_dt=(resolve_window_dt(cfg, cfg.scenario)
+                   if cfg.scenario is not None else 0.0),
+        observe=_observe(cfg),
         stream_batch=stream_batch)
     return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
             res.window_loads, metrics[:, policy_core.MET_MAKESPAN])
 
 
-def _trial_result(cfg: SimConfig, window_dt: float, init, strag_mask,
-                  works: Workload, traces, chosen, probe_msgs, redirected,
-                  latencies, window_loads, phase_time=None) -> TrialResult:
-    """Fold the scheduled streams into the (T,) `TrialResult` stack.  The
-    float per-server sum keeps the pinned `server_segment_sum`
-    association; the integer counts are exact under any order."""
+def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
+                 chosen, probe_msgs, redirected, latencies, window_loads,
+                 phase_time) -> TrialResult:
+    """Stage 3: fold the scheduled streams into the (T,) `TrialResult`
+    stack — the reference's vmapped ``_trial_result``.  The float
+    per-server sum keeps the pinned `server_segment_sum` association; the
+    integer counts are exact under any order."""
     m = cfg.n_servers
     t = chosen.shape[0]
     chosen64 = chosen.to(torch.int64)
@@ -362,11 +355,6 @@ def _trial_result(cfg: SimConfig, window_dt: float, init, strag_mask,
         strag_mask = strag_mask | trace_straggler_mask(traces, cfg.scenario)
     hits = torch.gather(strag_mask, 1, chosen64).to(torch.int32).sum(
         dim=-1, dtype=torch.int32)
-    if phase_time is None:
-        w_open = torch.clamp_min(
-            (torch.arange(cfg.n_requests, device=chosen.device)
-             // cfg.window_size).to(F32) * f32(window_dt, latencies), 0.0)
-        phase_time = (w_open + latencies).amax(dim=-1)
     return TrialResult(
         server_loads=init + written, n_assigned=n_assigned, chosen=chosen,
         probe_msgs=probe_msgs, straggler_hits=hits,
@@ -375,15 +363,6 @@ def _trial_result(cfg: SimConfig, window_dt: float, init, strag_mask,
         phase_time=phase_time, window_loads=window_loads,
         window_size_eff=torch.full((t,), cfg.window_size, dtype=torch.int32,
                                    device=chosen.device))
-
-
-def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
-                 chosen, probes, redirected, latencies, wl,
-                 phase) -> TrialResult:
-    """Stage 3: the (T,) `TrialResult` stack."""
-    return _trial_result(cfg, _resolved_window_dt(cfg), init, strag_mask,
-                         works, traces, chosen, probes, redirected,
-                         latencies, wl, phase_time=phase)
 
 
 def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,

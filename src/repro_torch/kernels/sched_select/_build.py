@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file becomes a shared library with a plain C interface,
 loaded with ``ctypes``.  The library lands in ``src/repro_torch/_build/``
 (listed in ``.gitignore``) under a name that carries a hash of the source
 and the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Building takes seconds; nothing is built when the package is
-imported.
+loaded.  nvcc's output (the ``-Xptxas -v`` register, shared-memory and
+spill lines) is kept beside the library as ``<name>.log``.  Building takes
+seconds; nothing is built when the package is imported.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-
-BUILD_LOGS: dict = {}  # source name -> nvcc's output (the -Xptxas -v lines)
-
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -51,17 +49,23 @@ def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless a library for this exact source
     and flag set exists; returns the library's path."""
     out = library_path(source)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[source] = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_log(source: str) -> str:
+    """nvcc's output from the build of ``csrc/<source>``, building it if
+    needed."""
+    return build(source).with_suffix(".log").read_text()
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -9,14 +9,16 @@ version on a CPU tensor, and slices the padding off again.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.policy_core import N_METRICS
-from repro_torch.kernels.sched_select.kernel import sched_stream_call
+from repro_torch.kernels.sched_select.kernel import (POLICY_CODES,
+                                                     sched_stream_call)
 from repro_torch.kernels.sched_select.ref import sched_stream_batch_ref
 
-POLICIES = ("minload", "two_random", "ect", "trh", "rr", "two_choice",
-            "mlml", "nltr")
+POLICIES = tuple(POLICY_CODES)
 
 
 def _check_policy(policy: str, n_servers: int, nltr_n: int) -> None:
@@ -51,34 +53,36 @@ def pad_operands(object_ids, lengths, valid, tables, seeds, win_rates):
             pad(win_rates))
 
 
-def _run(fn, object_ids, lengths, valid, tables, seeds, win_rates, *,
-         n_servers, policy, nltr_n, **kw):
+def _run(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
+         valid: torch.Tensor, tables: torch.Tensor, seeds: torch.Tensor,
+         win_rates: torch.Tensor, *, n_servers: int, window_size: int,
+         threshold: float = 0.0, lam: float = 32.0, alpha: float = 0.25,
+         window_dt: float = 0.0, policy: str = "ect", observe: bool = True,
+         renorm: bool = True, nltr_n: int = 2, probe_choices: int = 2):
     _check_policy(policy, n_servers, nltr_n)
     m = tables.shape[-1]
     choices, lats, ftab, wloads, metrics = fn(
         *pad_operands(object_ids, lengths, valid, tables, seeds, win_rates),
-        n_servers=n_servers, policy=policy, nltr_n=nltr_n, **kw)
+        n_servers=n_servers, window_size=window_size, threshold=threshold,
+        lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
+        observe=observe, renorm=renorm, nltr_n=nltr_n,
+        probe_choices=probe_choices)
     return (choices, lats, ftab[..., :m], wloads[..., :m],
             metrics[:, :N_METRICS])
 
 
-def sched_stream_batch(object_ids: torch.Tensor, lengths: torch.Tensor,
-                       valid: torch.Tensor, tables: torch.Tensor,
-                       seeds: torch.Tensor, win_rates: torch.Tensor, *,
-                       n_servers: int, window_size: int,
-                       threshold: float = 0.0, lam: float = 32.0,
-                       alpha: float = 0.25, window_dt: float = 0.0,
-                       policy: str = "ect", observe: bool = True,
-                       renorm: bool = True, nltr_n: int = 2,
-                       probe_choices: int = 2):
+def sched_stream_batch(object_ids: torch.Tensor, *args, **kw):
     """T whole windowed streams in one kernel launch.
 
     object_ids/lengths/valid: (T, N) with N = W * window_size (padding
     rows invalid); tables: (T, 4, M) packed logs; seeds: (T,) uint32 LCG
     states (any integer dtype); win_rates: (T, W, M) true per-window
-    rates.  Returns (choices (T, N) int32, latencies (T, N), final_tables
-    (T, 4, M), window_loads (T, W, M), metrics (T, N_METRICS) in
-    `policy_core.MET_*` order).
+    rates; then the keyword parameters of `_run` (``n_servers``,
+    ``window_size``, ``threshold``, ``lam``, ``alpha``, ``window_dt``,
+    ``policy``, ``observe``, ``renorm``, ``nltr_n``, ``probe_choices``),
+    whose defaults live there once.  Returns (choices (T, N) int32,
+    latencies (T, N), final_tables (T, 4, M), window_loads (T, W, M),
+    metrics (T, N_METRICS) in `policy_core.MET_*` order).
 
     A CUDA tensor goes through the CUDA kernel, which raises if it cannot
     run; a CPU tensor goes through the plain PyTorch version."""
@@ -89,28 +93,9 @@ def sched_stream_batch(object_ids: torch.Tensor, lengths: torch.Tensor,
     else:
         raise ValueError(f"no sched_stream implementation for "
                          f"{object_ids.device}")
-    return _run(fn, object_ids, lengths, valid, tables, seeds, win_rates,
-                n_servers=n_servers, window_size=window_size,
-                threshold=threshold, lam=lam, alpha=alpha,
-                window_dt=window_dt, policy=policy, observe=observe,
-                renorm=renorm, nltr_n=nltr_n, probe_choices=probe_choices)
+    return _run(fn, object_ids, *args, **kw)
 
 
-def sched_stream_batch_plain(object_ids: torch.Tensor, lengths: torch.Tensor,
-                             valid: torch.Tensor, tables: torch.Tensor,
-                             seeds: torch.Tensor, win_rates: torch.Tensor, *,
-                             n_servers: int, window_size: int,
-                             threshold: float = 0.0, lam: float = 32.0,
-                             alpha: float = 0.25, window_dt: float = 0.0,
-                             policy: str = "ect", observe: bool = True,
-                             renorm: bool = True, nltr_n: int = 2,
-                             probe_choices: int = 2):
-    """`sched_stream_batch` through the plain PyTorch version on whatever
-    device the tensors lie on: what the kernel is held against on the
-    card.  Same arguments and outputs."""
-    return _run(sched_stream_batch_ref, object_ids, lengths, valid, tables,
-                seeds, win_rates, n_servers=n_servers,
-                window_size=window_size, threshold=threshold, lam=lam,
-                alpha=alpha, window_dt=window_dt, policy=policy,
-                observe=observe, renorm=renorm, nltr_n=nltr_n,
-                probe_choices=probe_choices)
+# `sched_stream_batch` through the plain PyTorch version on whatever device
+# the tensors lie on: what the kernel is held against on the card.
+sched_stream_batch_plain = functools.partial(_run, sched_stream_batch_ref)

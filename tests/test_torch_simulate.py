@@ -4,10 +4,12 @@ own prep, and the port's isolation and device rules.
 The reference's ``_prep_trials`` runs at a small `SimConfig`; its outputs
 are carried across as numpy arrays with `repro_torch.interop`; the port's
 ``_sched_trials`` + ``_post_trials`` (CPU, plain kernel version) are then
-held field by field against the reference's ``run_trials``: its kernel
-backend for ect and mlml, and its jax backend (pinned bit-exact to the
-kernel backend by the reference's own tests, randomised policies replaying
-the kernel's LCG) for the rest of the policy sweep."""
+held field by field against the reference's own ``_sched_trials`` +
+``_post_trials`` on that same prep (what its jitted ``run_trials`` runs,
+stage for stage): its kernel backend for ect and mlml, and its jax backend
+(pinned bit-exact to the kernel backend by the reference's own tests,
+randomised policies replaying the kernel's LCG) for the rest of the policy
+sweep."""
 
 import dataclasses
 import functools
@@ -37,7 +39,6 @@ SLICE_CASES = [
     (SMALL, "ect", "kernel"),
     (SMALL, "mlml", "kernel"),
     (WIDE, "ect", "kernel"),
-    (WIDE, "mlml", "kernel"),
     (SMALL, "trh", "jax"),
     (SMALL, "nltr", "jax"),
     (SMALL, "rr", "jax"),
@@ -84,9 +85,13 @@ def test_slice_matches_reference(case):
     assert log_t == type(log_t)(**dataclasses.asdict(log_j))
     thr = 0.05 if policy == "ect" else 5.0
     rng = "lcg" if policy in ("trh", "nltr", "two_choice") else "jax"
-    ref = jsim.run_trials(KEY, cfg_j, JPolicyConfig(name=policy,
-                                                    threshold=thr, rng=rng),
-                          log_j)
+    pol_j = JPolicyConfig(name=policy, threshold=thr, rng=rng)
+    init, mask, works, states, traces, k_sched = _reference_prep(
+        tuple(sorted(fields.items())), scenario)
+    ref = jax.jit(lambda *a: jsim._post_trials(
+        cfg_j, a[0], a[1], a[2], a[4], *jsim._sched_trials(
+            cfg_j, pol_j, log_j, a[2], a[3], a[5], a[4])))(
+        init, mask, works, states, traces, k_sched)
     prep = _port_from_reference(fields, scenario)
     pol = PolicyConfig(name=policy, threshold=thr)
     sched = tsim._sched_trials(cfg_t, pol, log_t, prep.works, prep.states,
@@ -148,6 +153,44 @@ def test_port_prep_distributions():
             (init, mask, works, states, traces, seeds)),
             jax.tree_util.tree_leaves(again)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("scenario", tsim.SCENARIOS)
+def test_port_scenario_traces(scenario):
+    """Every scenario's trace against the reference's `make_trace`: the
+    event times bit for bit, the rate rows as base/slow rows of the same
+    shape with as many slow servers (a contiguous rack for
+    correlated_rack), and `trace_straggler_mask` on the port's trace."""
+    fields = dict(n_servers=37, n_requests=250, n_trials=4, window_size=60)
+    cfg_t = tsim.SimConfig(**fields, scenario=tsim.ScenarioConfig(scenario))
+    cfg_j = jsim.SimConfig(**fields, scenario=jsim.ScenarioConfig(scenario))
+    assert tsim.resolve_window_dt(cfg_t, cfg_t.scenario) == \
+        jsim.resolve_window_dt(cfg_j, cfg_j.scenario)
+    got = tsim.make_trace(torch.Generator().manual_seed(3), cfg_t,
+                          cfg_t.scenario, cfg_t.n_trials, torch.device("cpu"))
+    want = jsim.make_trace(KEY, cfg_j, cfg_j.scenario)
+    times, rates = got.times.numpy(), got.rates.numpy()
+    assert times.shape == (4,) + want.times.shape
+    assert rates.shape == (4,) + want.rates.shape
+    np.testing.assert_array_equal(times, np.broadcast_to(
+        np.asarray(want.times), times.shape))
+    base = np.float32(cfg_t.scenario.base_rate_mb_s)
+    slow = np.float32(base / cfg_t.scenario.slow_factor)
+    assert set(np.unique(rates)) <= {base, slow}
+    want_slow = (np.asarray(want.rates) == slow).sum(axis=-1)
+    np.testing.assert_array_equal((rates == slow).sum(axis=-1),
+                                  np.broadcast_to(want_slow, rates.shape[:2]))
+    mask = tsim.trace_straggler_mask(got, cfg_t.scenario).numpy()
+    for t in range(4):
+        np.testing.assert_array_equal(mask[t], np.asarray(
+            jsim.trace_straggler_mask(
+                want._replace(times=jnp.asarray(times[t]),
+                              rates=jnp.asarray(rates[t])),
+                cfg_j.scenario)))
+        if scenario == "correlated_rack":
+            slow_ids = np.flatnonzero(mask[t])
+            assert slow_ids.size == cfg_t.scenario.rack_size
+            assert slow_ids[-1] - slow_ids[0] == slow_ids.size - 1
 
 
 @pytest.mark.parametrize("workload", ["small", "medium", "large"])
