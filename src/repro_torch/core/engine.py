@@ -1,11 +1,13 @@
-"""Window/step scheduling engine, trial-batch kernel form (paper §3.2).
+"""Window/step scheduling engine, batched kernel form (paper §3.2).
 
 Counterpart of the JAX package's ``core/engine.py``, cut to
-`run_stream_batch` in its ``(T,)`` kernel form.  The request time series
-is split into fixed-size windows; within a window same-object requests
-are grouped into one step (the object is fetched once, paper Fig. 7);
-the whole batch of streams is then scheduled in one launch of the
-trial-grid kernel, and the host-side bookkeeping (redirects, the
+`run_stream_batch` in its kernel forms: a ``(T,)`` batch of trials, or a
+``(T, C)`` batch of trials × private-log clients (the per_client model).
+The request time series is split into fixed-size windows; within a window
+same-object requests are grouped into one step (the object is fetched
+once, paper Fig. 7); the whole batch of streams is then scheduled in one
+launch of the stream kernel (plus, for ``(T, C)``, one launch of the
+cross-client merge), and the host-side bookkeeping (redirects, the
 step-to-request scatter, per-server counts, probes, the virtual clock)
 runs as plain tensor code afterwards.
 """
@@ -59,6 +61,16 @@ class ScheduleResult(NamedTuple):
     redirected: torch.Tensor    # (..., R) bool chosen != default home
     latencies: torch.Tensor     # (..., R) float32 est. completion latency, s
     window_loads: torch.Tensor  # (..., W, M) post-drain load snapshots
+
+
+class ClientMerge(NamedTuple):
+    """Per-trial cross-client aggregates of the ``(T, C)`` form, merged over
+    the REAL clients (a client is real iff it scheduled a valid step)."""
+
+    window_loads_mean: torch.Tensor  # (T, W, M) masked client-mean loads
+    metrics: torch.Tensor            # (T, N_CMETRICS) merged MET_* rows
+    lats: torch.Tensor               # (T, C, N) masked grouped-step latencies
+    lats_valid: torch.Tensor         # (T, C, N) 0/1 float32 validity
 
 
 def rates_at(trace: ClusterTrace, t: torch.Tensor) -> torch.Tensor:
@@ -204,49 +216,83 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
                      window_size: int,
                      traces: Optional[ClusterTrace] = None,
                      window_dt: float = 0.0, observe: Optional[bool] = None,
-                     stream_batch=kops.sched_stream_batch):
-    """A (T,) batch of windowed streams scheduled in one kernel launch.
+                     client_tile=None, stream_batch=kops.sched_stream_batch,
+                     stream_grid=kops.sched_stream_grid):
+    """A batch of windowed streams scheduled in one kernel launch.
 
-    ``states``/``works`` carry a leading trial axis; ``seeds`` is the
-    (T,) tensor of uint32 LCG states (any integer dtype); ``traces`` (if
-    given) per-trial `ClusterTrace`s.  Window ``w`` opens at virtual time
-    ``w * window_dt``; with a trace its rates are looked up there, and
-    after the window the queues drain for ``window_dt`` seconds.
+    ``states``/``works``/``seeds`` carry a leading ``(T,)`` trial axis, or
+    ``(T, C)`` trials × clients (the per_client model: each client
+    schedules its private slice against its own log).  ``seeds`` holds
+    uint32 LCG states (any integer dtype); ``traces`` (if given) are
+    per-TRIAL `ClusterTrace`s, shared by a trial's clients.  Window ``w``
+    opens at virtual time ``w * window_dt``; with a trace its rates are
+    looked up there, and after the window the queues drain for
+    ``window_dt`` seconds.  ``client_tile`` (``(T, C)`` only) is the
+    cross-client merge's association width (see `ops.sched_stream_grid`).
 
-    ``stream_batch`` is the scheduling function; the default is the
-    kernel dispatch (`ops.sched_stream_batch`).  Passing
-    `ops.sched_stream_batch_plain` runs the same pipeline through the
-    plain PyTorch version on the same device, which is how the kernel is
-    held against it end to end on the card.
+    ``stream_batch`` / ``stream_grid`` schedule the ``(T,)`` / ``(T, C)``
+    forms; the defaults are the kernel dispatch.  Passing
+    `ops.sched_stream_batch_plain` / `ops.sched_stream_grid_plain` runs
+    the same pipeline through the plain PyTorch version on the same
+    device, which is how the kernels are held against it end to end on
+    the card.
 
-    Returns ``(result, metrics)``: a `ScheduleResult` with a leading
-    trial axis on every field, and the kernel's fused (T, N_METRICS)
-    metric rows in `policy_core.MET_*` order."""
+    Returns ``(result, metrics, merged)``: a `ScheduleResult` with the
+    leading batch axes on every field, the kernel's fused
+    (..., N_METRICS) per-stream metric rows in `policy_core.MET_*` order,
+    and the `ClientMerge` of the ``(T, C)`` form (None for ``(T,)``)."""
     validate_policy(policy, states.n_servers)
     if policy.name not in KERNEL_POLICIES:
         raise ValueError(f"run_stream_batch supports {KERNEL_POLICIES}, "
                          f"got {policy.name!r}")
-    if works.object_ids.ndim != 2:
-        raise NotImplementedError(
-            "run_stream_batch takes a (T,) trial batch; the (T, C) "
-            "per_client form waits for ROADMAP Queue B2")
+    batch_shape = tuple(works.object_ids.shape[:-1])
+    if len(batch_shape) not in (1, 2) or \
+            tuple(states.log.shape[:-2]) != batch_shape:
+        raise ValueError(
+            f"works carry batch axes {batch_shape} and states "
+            f"{tuple(states.log.shape[:-2])}: both must be (T,) or (T, C)")
+    two_d = len(batch_shape) == 2
     if observe is None:
         observe = traces is not None
-    t, r = works.object_ids.shape
+    r = works.object_ids.shape[-1]
     m = states.n_servers
     n_win, obj, lens, val = _window_split(works, window_size)
     (g_obj, g_lens, g_val), req_to_step = group_by_object_with_map(
         Workload(obj, lens, val))
-    win_rates = _window_rates(states, traces, n_win, window_dt)
-    choices, lats, tables, wloads, metrics = stream_batch(
-        g_obj.reshape(t, -1), g_lens.reshape(t, -1), g_val.reshape(t, -1),
-        states.log, seeds, win_rates, n_servers=m, window_size=window_size,
-        threshold=policy.threshold, lam=log_cfg.lam,
-        alpha=log_cfg.ewma_alpha, window_dt=window_dt, policy=policy.name,
-        observe=observe, renorm=log_cfg.renorm, nltr_n=policy.nltr_n,
-        probe_choices=policy.probe_choices)
-    result = _kernel_bookkeeping(
-        states, choices, lats, tables, wloads, g_obj, g_val, val,
-        req_to_step, win_rates[:, -1], policy=policy, window_dt=window_dt,
-        n_win=n_win, window_size=window_size, r=r)
-    return result, metrics
+    # rates are per trial: a trial's clients share its cluster
+    rate_states = states._replace(rates=states.rates[:, 0]) if two_d \
+        else states
+    win_rates = _window_rates(rate_states, traces, n_win, window_dt)
+    kw = dict(n_servers=m, window_size=window_size,
+              threshold=policy.threshold, lam=log_cfg.lam,
+              alpha=log_cfg.ewma_alpha, window_dt=window_dt,
+              policy=policy.name, observe=observe, renorm=log_cfg.renorm,
+              nltr_n=policy.nltr_n, probe_choices=policy.probe_choices)
+    steps = lambda x: x.reshape(batch_shape + (-1,))  # noqa: E731
+    merged = None
+    if two_d:
+        (choices, lats, tables, wloads, metrics, cm_wl, cm_met, cm_lats,
+         cm_lval) = stream_grid(steps(g_obj), steps(g_lens), steps(g_val),
+                                states.log, seeds, win_rates,
+                                client_tile=client_tile, **kw)
+        merged = ClientMerge(window_loads_mean=cm_wl, metrics=cm_met,
+                             lats=cm_lats, lats_valid=cm_lval)
+    else:
+        choices, lats, tables, wloads, metrics = stream_batch(
+            steps(g_obj), steps(g_lens), steps(g_val), states.log, seeds,
+            win_rates, **kw)
+    # the bookkeeping runs over the flat T·C streams, each with its
+    # trial's last rates
+    rates_last = win_rates[:, -1]
+    if two_d:
+        rates_last = rates_last[:, None].expand(batch_shape + (m,))
+    flat = lambda x: x.flatten(0, len(batch_shape) - 1)  # noqa: E731
+    res = _kernel_bookkeeping(
+        SchedState(*map(flat, states)), flat(choices), flat(lats),
+        flat(tables), flat(wloads), flat(g_obj), flat(g_val), flat(val),
+        flat(req_to_step), flat(rates_last), policy=policy,
+        window_dt=window_dt, n_win=n_win, window_size=window_size, r=r)
+    unflat = lambda x: x.unflatten(0, batch_shape)  # noqa: E731
+    result = ScheduleResult(SchedState(*map(unflat, res.state)),
+                            *map(unflat, res[1:]))
+    return result, metrics, merged

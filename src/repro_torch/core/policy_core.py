@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
+
 # Packed log-tensor rows.
 ROW_LOADS, ROW_PROBS, ROW_EWMA, ROW_EST = 0, 1, 2, 3
 N_ROWS = 4
@@ -30,6 +32,18 @@ N_ROWS = 4
 MET_MAKESPAN, MET_P99, MET_LAT_SUM, MET_LAT_MAX, MET_N_VALID = 0, 1, 2, 3, 4
 N_METRICS = 5
 MET_PAD = 128          # width of the kernel's metrics row
+
+# Cross-client merged metrics of the 2-D (trials x clients) form: lanes
+# [0, N_METRICS) keep the MET_* meaning merged over the REAL clients (a
+# client is real iff it scheduled a valid step), plus the real-client
+# count.  `client_stream_metrics` computes the row.
+MET_N_CLIENTS = 5
+N_CMETRICS = 6
+
+# Clients per block of the cross-client float merge: an ASSOCIATION
+# parameter (`masked_client_sum` adds blocks of this width), never a
+# launch shape.  Every layer resolves it through `resolve_client_tile`.
+DEFAULT_CLIENT_TILE = 32
 
 # The in-kernel LCG (numerical recipes constants).
 LCG_A = 1664525
@@ -50,14 +64,21 @@ def f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=F32, device=like.device)
 
 
-def init_table(m: int, batch=None, device="cpu") -> torch.Tensor:
+def init_table(m: int, batch=None, device="cuda") -> torch.Tensor:
     """Fresh log: zero loads, round-robin prior ``1/M``, no observations,
-    unit estimated rates.  ``batch`` adds a leading trial axis."""
+    unit estimated rates.  ``batch`` adds a leading trial axis.  On the
+    card unless ``device="cpu"`` (`resolve_device` raises without one)."""
     shape = (N_ROWS, m) if batch is None else (batch, N_ROWS, m)
-    t = torch.zeros(shape, dtype=F32, device=device)
+    t = torch.zeros(shape, dtype=F32, device=resolve_device(device))
     t[..., ROW_PROBS, :] = torch.tensor(1.0 / m, dtype=F32)
     t[..., ROW_EST, :] = 1.0
     return t
+
+
+def resolve_client_tile(n_clients: int, client_tile=None) -> int:
+    """Effective width of the cross-client merge's client blocks."""
+    ct = DEFAULT_CLIENT_TILE if client_tile is None else client_tile
+    return max(min(ct, n_clients), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +308,87 @@ def stream_metrics(lats: torch.Tensor, valid: torch.Tensor, window_dt: float,
         lat_sum = lat_sum + latv[..., i:i + 1]
     p99 = nearest_rank_p99(lats, valid)
     return torch.cat([makespan, p99, lat_sum, lat_max, n_valid], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Cross-client merge of the 2-D (trials x clients) form
+# ---------------------------------------------------------------------------
+
+
+def _mask_clients(x: torch.Tensor, client_valid: torch.Tensor):
+    """Zero the rows of phantom clients; ``client_valid``'s shape is a
+    prefix of ``x``'s (leading client axis)."""
+    cv = client_valid.reshape(client_valid.shape
+                              + (1,) * (x.ndim - client_valid.ndim))
+    return torch.where(cv, x, torch.zeros_like(x))
+
+
+def masked_client_sum(x: torch.Tensor, client_valid: torch.Tensor,
+                      client_tile: int) -> torch.Tensor:
+    """Masked sum over the LEADING client axis with a pinned association:
+    ``ceil(C / client_tile)`` client blocks added in ascending order (the
+    first block taken as is), each block folded by `tree_sum` (zero-padded
+    to ``next_pow2(client_tile)``).  ``client_valid``: bool with ``x``'s
+    leading shape, at least (C,); phantom clients add exact zeros.
+    Returns ``x.shape[1:]``."""
+    c = x.shape[0]
+    xm = _mask_clients(x, client_valid)
+    n_blocks = -(-c // client_tile)
+    if n_blocks * client_tile != c:
+        xm = torch.cat([xm, xm.new_zeros((n_blocks * client_tile - c,)
+                                         + xm.shape[1:])])
+    out = None
+    for b in range(n_blocks):
+        blk = tree_sum(xm[b * client_tile:(b + 1) * client_tile], 0)[0]
+        out = blk if out is None else out + blk
+    return out
+
+
+def masked_client_mean(x: torch.Tensor, client_valid: torch.Tensor,
+                       client_tile: int) -> torch.Tensor:
+    """`masked_client_sum` divided by the real-client count (at least 1),
+    itself a `masked_client_sum` of ones."""
+    total = masked_client_sum(x, client_valid, client_tile)
+    n_real = masked_client_sum(torch.ones(client_valid.shape, dtype=x.dtype,
+                                          device=x.device),
+                               client_valid, client_tile)
+    denom = torch.clamp_min(n_real, 1.0)
+    return total / denom.reshape(denom.shape
+                                 + (1,) * (total.ndim - denom.ndim))
+
+
+def masked_client_max(x: torch.Tensor,
+                      client_valid: torch.Tensor) -> torch.Tensor:
+    """Masked max over the leading client axis, floored at 0 (every merged
+    metric is nonnegative); order-free."""
+    return _mask_clients(x, client_valid).amax(dim=0)
+
+
+def client_stream_metrics(metrics: torch.Tensor, client_valid: torch.Tensor,
+                          client_tile: int, merged_lats=None,
+                          merged_valid=None) -> torch.Tensor:
+    """Merge per-client stream-metric rows into one row in `MET_*` +
+    `MET_N_CLIENTS` order: makespan and lat_max by `masked_client_max`,
+    lat_sum, n_valid and the real-client count by `masked_client_sum`.
+
+    ``metrics``: (C, ..., >= N_METRICS); ``client_valid``: (C, ...).  With
+    ``merged_lats``/``merged_valid`` ((C, ..., N) grouped-step latencies
+    and validity) the p99 lane is `nearest_rank_p99` over the C·N merged
+    block of each batch index (counts and min/max are order-free, so the
+    layout does not matter); without them it is 0.  Returns
+    (..., N_CMETRICS)."""
+    metrics = metrics.to(F32)
+    mx = masked_client_max(metrics, client_valid)
+    sm = masked_client_sum(metrics, client_valid, client_tile)
+    n_real = masked_client_sum(torch.ones(client_valid.shape, dtype=F32,
+                                          device=metrics.device),
+                               client_valid, client_tile)
+    if merged_lats is None:
+        p99 = torch.zeros_like(n_real)
+    else:
+        lead = merged_lats.shape[1:-1]
+        flat = lambda a: a.movedim(0, -2).reshape(lead + (-1,))  # noqa: E731
+        p99 = nearest_rank_p99(flat(merged_lats), flat(merged_valid))[..., 0]
+    return torch.stack([mx[..., MET_MAKESPAN], p99, sm[..., MET_LAT_SUM],
+                        mx[..., MET_LAT_MAX], sm[..., MET_N_VALID], n_real],
+                       dim=-1)

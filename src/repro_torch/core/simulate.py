@@ -1,16 +1,26 @@
-"""Paper §4 simulation harness — the shared-log Monte-Carlo sweep.
+"""Paper §4 simulation harness — the Monte-Carlo sweep.
 
 Counterpart of the JAX package's ``core/simulate.py``: 100 object
 storage servers, 2,000 I/O requests per trial in three size classes,
 Normal initial loads, 100 trials, optional straggler injection and
-temporal straggler scenarios.  `run_trials` composes three (T,)-batched
-stages:
+temporal straggler scenarios, under one of two client models:
+
+* ``shared_log`` — one log schedules each trial's whole stream (the
+  paper's §4 setting);
+* ``per_client`` — the contention study: each trial's stream is split
+  over ``n_clients`` private logs that share the trial's initial loads
+  and trace but never see each other's decisions; the window clamps to
+  the per-client slice, and the cross-client aggregates (window-load
+  mean, probe sum, makespan) are merged over the real clients.
+
+`run_trials` composes three (T,)-batched stages:
 
 * `_prep_trials`  — workloads, initial loads, the absorbed ``(4, M)`` log
-  tables, the scenario rate traces and the LCG seeds, drawn from one
-  ``torch.Generator``;
-* `_sched_trials` — every trial's stream in ONE launch of the trial-grid
-  kernel (`engine.run_stream_batch`);
+  tables, the scenario rate traces and the LCG seeds ((T,) or (T, C)),
+  drawn from one ``torch.Generator``;
+* `_sched_trials` — every stream in ONE launch of the stream kernel, plus
+  one of the cross-client merge under per_client
+  (`engine.run_stream_batch`);
 * `_post_trials`  — the per-trial `TrialResult` bookkeeping.
 
 The draws follow the reference's distributions, not its bits (the JAX
@@ -21,6 +31,7 @@ carries the reference's prep across when a test needs identical inputs.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -64,7 +75,8 @@ class ScenarioConfig:
 class SimConfig:
     """Paper §4 simulation parameters (defaults = the paper's numbers).
 
-    The port schedules on the trial-grid kernel with one shared log.  The
+    ``client_tile`` is the association width of the per_client
+    cross-client merge (None = `policy_core.DEFAULT_CLIENT_TILE`).  The
     reference's other dispatch knobs raise until their slice lands."""
 
     n_servers: int = 100
@@ -106,10 +118,10 @@ class SimConfig:
                 f"n_clients={self.n_clients!r} must be >= 1 (the "
                 "per_client contention model partitions n_requests="
                 f"{self.n_requests} over the clients)")
-        if self.client_model == "per_client":
-            raise NotImplementedError(
-                "client_model='per_client' and its 2-D kernel wait for "
-                "ROADMAP Queue B2")
+        if self.client_tile is not None and self.client_tile < 1:
+            raise ValueError(
+                f"client_tile={self.client_tile!r} must be a positive "
+                "client count per merge block (or None for the default)")
         if self.backend == "jax":
             raise NotImplementedError(
                 "backend='jax' (the eager scan engine) waits for ROADMAP "
@@ -118,12 +130,12 @@ class SimConfig:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the sharded sweep waits "
                 "for ROADMAP Queue A10")
-        if (self.trial_tile is not None or self.client_tile is not None
-                or self.tiles != "default" or self.prep != "batched"):
+        if (self.trial_tile is not None or self.tiles != "default"
+                or self.prep != "batched"):
             raise NotImplementedError(
-                "the lowering knobs tiles/trial_tile/client_tile/prep wait "
-                "for ROADMAP Queue A10 (the CUDA launch shape is not an "
-                "association parameter)")
+                "the lowering knobs tiles/trial_tile/prep wait for ROADMAP "
+                "Queue A10 (the CUDA launch shape is not an association "
+                "parameter)")
 
     @property
     def n_windows(self) -> int:
@@ -144,7 +156,9 @@ class TrialResult(NamedTuple):
     latencies: torch.Tensor        # (T, R) est. completion latency, s
     phase_time: torch.Tensor       # (T,) makespan, s
     window_loads: torch.Tensor     # (T, W, M) post-drain load snapshots
+    #   (per_client: masked mean over the real clients' private views)
     window_size_eff: torch.Tensor  # (T,) int32 window size scheduled with
+    #   (per_client: min(window_size, ceil(R / n_clients)))
 
 
 def mean_request_mb(cfg: SimConfig) -> float:
@@ -314,28 +328,81 @@ def _prep_trials(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
     if cfg.scenario is not None:
         traces = make_trace(gen, cfg, cfg.scenario, t, device)
         state = state._replace(rates=traces.rates[:, 0].contiguous())
-    seeds = torch.randint(0, 2 ** 32, (t,), generator=gen,
+    lead = (t, cfg.n_clients) if cfg.client_model == "per_client" else (t,)
+    seeds = torch.randint(0, 2 ** 32, lead, generator=gen,
                           dtype=torch.int64, device=device)
     return init, strag_mask, works, state, traces, seeds
+
+
+def _client_split_shape(cfg: SimConfig) -> Tuple[int, int, int, int]:
+    """(n_clients, per-client slice length, tail padding, effective
+    window size) of the per_client request partition."""
+    c = cfg.n_clients
+    per = -(-cfg.n_requests // c)
+    pad = c * per - cfg.n_requests
+    return c, per, pad, min(cfg.window_size, per)
+
+
+def _split_clients(works: Workload, c: int, per: int, pad: int) -> Workload:
+    """Partition (T, R) request streams into (T, C, per) client slices
+    (tail padding invalid; trailing clients may be whole phantoms that
+    schedule nothing when n_clients > n_requests)."""
+    def sp(a):
+        if pad:
+            a = torch.cat([a, a.new_zeros(a.shape[:-1] + (pad,))], dim=-1)
+        return a.reshape(a.shape[:-1] + (c, per))
+
+    return Workload(*map(sp, works))
 
 
 def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
                   works: Workload, states: SchedState, seeds: torch.Tensor,
                   traces: Optional[ClusterTrace],
-                  stream_batch=kops.sched_stream_batch):
-    """Stage 2: every trial's stream in one kernel launch.  Returns
-    ``(chosen, probes, redirected, latencies, window_loads, phase)`` in
-    original request order; ``phase`` is the kernel's fused makespan.
-    ``stream_batch`` as in `engine.run_stream_batch`."""
-    res, metrics = engine.run_stream_batch(
-        states, works, seeds, policy=policy, log_cfg=log_cfg,
-        window_size=cfg.window_size, traces=traces,
-        window_dt=(resolve_window_dt(cfg, cfg.scenario)
-                   if cfg.scenario is not None else 0.0),
-        observe=_observe(cfg),
-        stream_batch=stream_batch)
-    return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
-            res.window_loads, metrics[:, policy_core.MET_MAKESPAN])
+                  stream_batch=kops.sched_stream_batch,
+                  stream_grid=kops.sched_stream_grid):
+    """Stage 2: every stream in one kernel launch (plus the cross-client
+    merge under per_client).  Returns ``(chosen, probes, redirected,
+    latencies, window_loads, phase)`` per trial in original request
+    order; ``phase`` is the kernel's fused makespan (merged over the real
+    clients under per_client).  ``stream_batch``/``stream_grid`` as in
+    `engine.run_stream_batch`.
+
+    per_client: the window clamps to the per-client slice (a warning
+    names both sizes), while the window timing (``window_dt``) keeps the
+    configured window size; the probe sum is an integer sum over the
+    real clients."""
+    window_dt = (resolve_window_dt(cfg, cfg.scenario)
+                 if cfg.scenario is not None else 0.0)
+    run = dict(policy=policy, log_cfg=log_cfg, traces=traces,
+               window_dt=window_dt, observe=_observe(cfg),
+               stream_batch=stream_batch, stream_grid=stream_grid)
+    if cfg.client_model != "per_client":
+        res, metrics, _ = engine.run_stream_batch(
+            states, works, seeds, window_size=cfg.window_size, **run)
+        return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
+                res.window_loads, metrics[:, policy_core.MET_MAKESPAN])
+    c, per, pad, win = _client_split_shape(cfg)
+    if win < cfg.window_size:
+        warnings.warn(
+            f"per_client window clamp: window_size={cfg.window_size} "
+            f"exceeds the per-client slice (n_requests={cfg.n_requests} "
+            f"over n_clients={c} -> {per}/client); scheduling with "
+            f"window_size_eff={win} — sweeps comparing window sizes across "
+            "client counts are comparing different windows", stacklevel=2)
+    t, r = works.object_ids.shape
+    run_works = _split_clients(works, c, per, pad)
+    run_states = SchedState(*(x[:, None].expand((t, c) + x.shape[1:])
+                              for x in states))
+    res, _, merged = engine.run_stream_batch(
+        run_states, run_works, seeds, window_size=win,
+        client_tile=cfg.client_tile, **run)
+    cvalid = run_works.valid.any(dim=-1)                      # (T, C)
+    probes = torch.where(cvalid, res.probe_msgs, 0).sum(
+        dim=-1, dtype=torch.int32)
+    first = lambda x: x.reshape(t, c * per)[:, :r]  # noqa: E731
+    return (first(res.chosen), probes, first(res.redirected),
+            first(res.latencies), merged.window_loads_mean,
+            merged.metrics[:, policy_core.MET_MAKESPAN])
 
 
 def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
@@ -347,6 +414,8 @@ def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
     integer counts are exact under any order."""
     m = cfg.n_servers
     t = chosen.shape[0]
+    win = (_client_split_shape(cfg)[3] if cfg.client_model == "per_client"
+           else cfg.window_size)
     chosen64 = chosen.to(torch.int64)
     written = policy_core.server_segment_sum(works.lengths, chosen64, m)
     n_assigned = torch.zeros((t, m), dtype=torch.int32, device=chosen.device)
@@ -361,14 +430,15 @@ def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
         redirected=redirected.to(torch.int32).sum(dim=-1, dtype=torch.int32),
         init_loads=init, straggler_mask=strag_mask, latencies=latencies,
         phase_time=phase_time, window_loads=window_loads,
-        window_size_eff=torch.full((t,), cfg.window_size, dtype=torch.int32,
+        window_size_eff=torch.full((t,), win, dtype=torch.int32,
                                    device=chosen.device))
 
 
 def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
                log_cfg: LogConfig, device="cuda") -> TrialResult:
     """Run ``cfg.n_trials`` independent trials: prep, one kernel launch
-    for the whole sweep, post.
+    for the whole sweep (and one of the cross-client merge under
+    per_client), post.
 
     ``generator_or_seed`` is a ``torch.Generator`` on ``device`` or an int
     seed for a fresh one.  ``device`` defaults to the card and raises if

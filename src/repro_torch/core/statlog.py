@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import policy_core
 from repro_torch.core.policy_core import (ROW_EST, ROW_EWMA, ROW_LOADS,
                                           ROW_PROBS)
+from repro_torch.device import resolve_device
 
 
 class SchedState(NamedTuple):
@@ -70,9 +71,11 @@ class LogConfig:
     renorm: bool = True        # re-project probs onto the simplex per window
 
 
-def init_state(cfg: LogConfig, batch=None, device="cpu") -> SchedState:
+def init_state(cfg: LogConfig, batch=None, device="cuda") -> SchedState:
     """Fresh log (round-robin prior) with unit true rates.  ``batch``
-    adds a leading trial axis."""
+    adds a leading trial axis.  On the card unless
+    ``device="cpu"`` (`resolve_device` raises without one)."""
+    device = resolve_device(device)
     m = cfg.n_servers
     lead = () if batch is None else (batch,)
     return SchedState(

@@ -29,7 +29,8 @@ class PrepInputs(NamedTuple):
     works: Workload                # (T, R) requests
     states: SchedState             # (T, ...) logs and cluster truth
     traces: Optional[ClusterTrace]  # (T, E) times, (T, E, M) rates
-    seeds: torch.Tensor            # (T,) int64 holding uint32 LCG states
+    seeds: torch.Tensor            # (T,) or (T, C) int64 holding uint32
+    #                                LCG states
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -45,7 +46,8 @@ def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
     ``object_ids``/``lengths``/``valid`` (T, R); the state's ``log``
     (T, 4, M), ``n_assigned`` (T, M), ``rates`` (T, M), ``vclock`` (T,)
     and ``free_at`` (T, M); the optional trace's ``trace_times`` (T, E)
-    and ``trace_rates`` (T, E, M); and ``seeds`` (T,) uint32."""
+    and ``trace_rates`` (T, E, M); and ``seeds`` uint32, (T,) for the
+    shared log or (T, C) for per_client (one state per client)."""
     f32, i32 = torch.float32, torch.int32
     works = Workload(object_ids=_t(object_ids, i32, device),
                      lengths=_t(lengths, f32, device),

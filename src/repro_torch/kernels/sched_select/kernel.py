@@ -1,11 +1,15 @@
-"""Launch wrapper of the CUDA trial-grid stream kernel.
+"""Launch wrappers of the CUDA stream kernels.
 
 `sched_stream_call` is the counterpart of the JAX package's
 ``kernels/sched_select/kernel.py::sched_stream_call``: T independent
 windowed request streams scheduled in one launch of
 ``csrc/sched_stream.cu`` (one warp per stream, the stream's ``(4, M_pad)``
-log in shared memory).  It takes server-padded operands on a CUDA device;
-`ops.sched_stream_batch` does the padding and the dispatch.
+log in shared memory).  `sched_stream_grid_call` is the counterpart of
+``sched_stream_grid_call``: the same kernel over the T·C streams of the
+per_client model, then the ``client_merge`` kernel for the per-trial
+cross-client merge.  `sched_select_call` is the legacy single-window
+entry, a wrapper over `sched_stream_call`.  They take server-padded
+operands on a CUDA device; `ops` does the padding and the dispatch.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ import ctypes
 
 import torch
 
-from repro_torch.core.policy_core import MET_PAD, N_ROWS, window_decrements
+from repro_torch.core.policy_core import (MET_PAD, N_ROWS, ROW_EST,
+                                          ROW_LOADS, ROW_PROBS,
+                                          window_decrements)
 from repro_torch.kernels.sched_select import _build
 
 SOURCE = "sched_stream.cu"
@@ -25,25 +31,28 @@ MAX_WINDOW = 1024
 MAX_M_PAD = 1024
 WARPS_PER_BLOCK = 4     # launch shape only: streams are independent
 
-# Launches of the kernel in this process (reset by callers that count).
-LAUNCHES = 0
+# Launches in this process, by kernel form (reset by callers that count):
+# the stream kernel over trials (1-D) or over trials x clients (2-D), and
+# the cross-client merge.
+LAUNCHES = {"sched_stream": 0, "sched_stream_grid": 0, "client_merge": 0}
 
-_FN = None
+_LIB = None
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
+def _library():
+    global _LIB
+    if _LIB is None:
         lib = _build.load(SOURCE)
-        fn = lib.sched_stream_launch
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 6
-                       + [ptr])
-        fn.restype = ctypes.c_int
+        lib.sched_stream_launch.argtypes = (
+            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 7 + [ptr])
+        lib.sched_stream_launch.restype = ctypes.c_int
+        lib.client_merge_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+        lib.client_merge_launch.restype = ctypes.c_int
         lib.sched_stream_error_string.argtypes = [ctypes.c_int]
         lib.sched_stream_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.sched_stream_error_string)
-    return _FN
+        _LIB = lib
+    return _LIB
 
 
 def seeds_as_int32(seeds: torch.Tensor) -> torch.Tensor:
@@ -65,6 +74,71 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        msg = _library().sched_stream_error_string(code).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")
+
+
+def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
+                    lead, n_servers, window_size, threshold, lam, alpha,
+                    window_dt, policy, observe, renorm, nltr_n=2,
+                    probe_choices=2):
+    """Check the operands and launch the stream kernel over the streams of
+    the leading shape ``lead`` ((T,) or (T, C)); win_rates carry the
+    trial axis only.  Returns the five per-stream outputs."""
+    if policy not in POLICY_CODES:
+        raise ValueError(f"policy must be one of {tuple(POLICY_CODES)}")
+    n = object_ids.shape[-1]
+    m_pad = tables.shape[-1]
+    n_win = win_rates.shape[1]
+    if n != n_win * window_size:
+        raise ValueError(f"N={n} is not W*window_size={n_win}*{window_size}")
+    if not 1 <= window_size <= MAX_WINDOW:
+        raise ValueError(f"window_size={window_size} must be in "
+                         f"[1, {MAX_WINDOW}] for this kernel")
+    if m_pad > MAX_M_PAD or m_pad % 128 or not 1 <= n_servers <= m_pad:
+        raise ValueError(f"M_pad={m_pad} must be a multiple of 128 up to "
+                         f"{MAX_M_PAD} holding n_servers={n_servers}")
+    _check("object_ids", object_ids, torch.int32, lead + (n,))
+    _check("lengths", lengths, torch.float32, lead + (n,))
+    _check("valid", valid, torch.int32, lead + (n,))
+    _check("tables", tables, torch.float32, lead + (N_ROWS, m_pad))
+    _check("win_rates", win_rates, torch.float32, (lead[0], n_win, m_pad))
+    if tuple(seeds.shape) != lead or seeds.device != object_ids.device:
+        raise ValueError(f"seeds must be {lead} on {object_ids.device}")
+    seeds32 = seeds_as_int32(seeds).contiguous()
+    # drain decrements pre-multiplied outside the kernel: the kernel's
+    # drain is a bare subtract
+    win_dec = window_decrements(win_rates, window_dt).contiguous()
+    dev = object_ids.device
+    choices = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    lats = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    ftab = torch.empty(lead + (N_ROWS, m_pad), dtype=torch.float32,
+                       device=dev)
+    wloads = torch.empty(lead + (n_win, m_pad), dtype=torch.float32,
+                         device=dev)
+    metrics = torch.empty(lead + (MET_PAD,), dtype=torch.float32, device=dev)
+    n_streams = 1
+    for d in lead:
+        n_streams *= d
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = _library().sched_stream_launch(
+            object_ids.data_ptr(), lengths.data_ptr(), valid.data_ptr(),
+            tables.data_ptr(), seeds32.data_ptr(), win_rates.data_ptr(),
+            win_dec.data_ptr(), choices.data_ptr(), lats.data_ptr(),
+            ftab.data_ptr(), wloads.data_ptr(), metrics.data_ptr(),
+            n_streams, n_win, window_size, n_servers, m_pad,
+            POLICY_CODES[policy], float(threshold), float(lam), float(alpha),
+            float(1 - alpha), float(window_dt), int(bool(window_dt)),
+            int(observe), int(renorm), int(nltr_n), int(probe_choices),
+            n_streams // lead[0], WARPS_PER_BLOCK, stream)
+    _raise_on(code, "sched_stream")
+    return choices, lats, ftab, wloads, metrics
+
+
 def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
                       valid: torch.Tensor, tables: torch.Tensor,
                       seeds: torch.Tensor, win_rates: torch.Tensor, *,
@@ -80,51 +154,123 @@ def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
     rates.  Returns (choices (T, N) int32, latencies (T, N) float32,
     final_tables (T, 4, M_pad), window_loads (T, W, M_pad), metrics
     (T, MET_PAD) float32 in `policy_core.MET_*` lane order)."""
-    global LAUNCHES
-    if policy not in POLICY_CODES:
-        raise ValueError(f"policy must be one of {tuple(POLICY_CODES)}")
-    t, n = object_ids.shape
-    m_pad = tables.shape[-1]
-    n_win = win_rates.shape[1]
-    if n != n_win * window_size:
-        raise ValueError(f"N={n} is not W*window_size={n_win}*{window_size}")
-    if not 1 <= window_size <= MAX_WINDOW:
-        raise ValueError(f"window_size={window_size} must be in "
-                         f"[1, {MAX_WINDOW}] for this kernel")
-    if m_pad > MAX_M_PAD or m_pad % 128 or not 1 <= n_servers <= m_pad:
-        raise ValueError(f"M_pad={m_pad} must be a multiple of 128 up to "
-                         f"{MAX_M_PAD} holding n_servers={n_servers}")
-    _check("object_ids", object_ids, torch.int32, (t, n))
-    _check("lengths", lengths, torch.float32, (t, n))
-    _check("valid", valid, torch.int32, (t, n))
-    _check("tables", tables, torch.float32, (t, N_ROWS, m_pad))
-    _check("win_rates", win_rates, torch.float32, (t, n_win, m_pad))
-    if seeds.shape != (t,) or seeds.device != object_ids.device:
-        raise ValueError(f"seeds must be ({t},) on {object_ids.device}")
-    seeds32 = seeds_as_int32(seeds).contiguous()
-    # drain decrements pre-multiplied outside the kernel: the kernel's
-    # drain is a bare subtract
-    win_dec = window_decrements(win_rates, window_dt).contiguous()
-    dev = object_ids.device
-    choices = torch.empty((t, n), dtype=torch.int32, device=dev)
-    lats = torch.empty((t, n), dtype=torch.float32, device=dev)
-    ftab = torch.empty((t, N_ROWS, m_pad), dtype=torch.float32, device=dev)
-    wloads = torch.empty((t, n_win, m_pad), dtype=torch.float32, device=dev)
-    metrics = torch.empty((t, MET_PAD), dtype=torch.float32, device=dev)
-    fn, err_str = _launcher()
+    out = _launch_streams(
+        object_ids, lengths, valid, tables, seeds, win_rates,
+        lead=tuple(object_ids.shape[:1]), n_servers=n_servers,
+        window_size=window_size, threshold=threshold, lam=lam, alpha=alpha,
+        window_dt=window_dt, policy=policy, observe=observe, renorm=renorm,
+        nltr_n=nltr_n, probe_choices=probe_choices)
+    LAUNCHES["sched_stream"] += 1
+    return out
+
+
+def sched_stream_grid_streams(object_ids: torch.Tensor,
+                              lengths: torch.Tensor, valid: torch.Tensor,
+                              tables: torch.Tensor, seeds: torch.Tensor,
+                              win_rates: torch.Tensor, **kw):
+    """The per-stream half of `sched_stream_grid_call`: the stream kernel
+    over the T·C streams, each reading its trial's win_rates row.
+    object_ids/lengths/valid (T, C, N), tables (T, C, 4, M_pad), seeds
+    (T, C), win_rates (T, W, M_pad); keywords as `sched_stream_call`.
+    Returns the five per-stream outputs with leading (T, C)."""
+    out = _launch_streams(object_ids, lengths, valid, tables, seeds,
+                          win_rates, lead=tuple(object_ids.shape[:2]), **kw)
+    LAUNCHES["sched_stream_grid"] += 1
+    return out
+
+
+def client_merge_call(metrics: torch.Tensor, wloads: torch.Tensor,
+                      lats: torch.Tensor, valid: torch.Tensor, *,
+                      client_tile: int, merge_mean: bool):
+    """Launch the cross-client merge, one block per trial.
+
+    metrics (T, C, MET_PAD), wloads (T, C, W, M_pad), lats (T, C, N)
+    float32 and valid (T, C, N) int32, as the stream kernel leaves them.
+    ``client_tile`` is the association width (`resolve_client_tile`).
+    Returns (cm_wloads (T, W, M_pad) — the masked client mean, or the raw
+    masked sum when ``merge_mean`` is False — cm_metrics (T, MET_PAD) in
+    `MET_*` + `MET_N_CLIENTS` order with the merged p99 when
+    ``merge_mean``, cm_lats (T, C, N) latencies masked to 0 and cm_lval
+    (T, C, N) 0/1 validity)."""
+    t, c, n = lats.shape
+    n_win, m_pad = wloads.shape[2:]
+    if not 1 <= client_tile <= c:
+        raise ValueError(f"client_tile={client_tile} must be in [1, {c}]")
+    _check("metrics", metrics, torch.float32, (t, c, MET_PAD))
+    _check("wloads", wloads, torch.float32, (t, c, n_win, m_pad))
+    _check("lats", lats, torch.float32, (t, c, n))
+    _check("valid", valid, torch.int32, (t, c, n))
+    dev = lats.device
+    cm_wloads = torch.empty((t, n_win, m_pad), dtype=torch.float32,
+                            device=dev)
+    cm_metrics = torch.empty((t, MET_PAD), dtype=torch.float32, device=dev)
+    cm_lats = torch.empty((t, c, n), dtype=torch.float32, device=dev)
+    cm_lval = torch.empty((t, c, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(object_ids.data_ptr(), lengths.data_ptr(), valid.data_ptr(),
-                  tables.data_ptr(), seeds32.data_ptr(), win_rates.data_ptr(),
-                  win_dec.data_ptr(), choices.data_ptr(), lats.data_ptr(),
-                  ftab.data_ptr(), wloads.data_ptr(), metrics.data_ptr(),
-                  t, n_win, window_size, n_servers, m_pad,
-                  POLICY_CODES[policy], float(threshold), float(lam),
-                  float(alpha), float(1 - alpha), float(window_dt),
-                  int(bool(window_dt)), int(observe), int(renorm),
-                  int(nltr_n), int(probe_choices), WARPS_PER_BLOCK, stream)
-    if code != 0:
-        raise RuntimeError(f"sched_stream kernel launch failed: CUDA error "
-                           f"{code} ({err_str(code).decode()})")
-    LAUNCHES += 1
-    return choices, lats, ftab, wloads, metrics
+        code = _library().client_merge_launch(
+            metrics.data_ptr(), wloads.data_ptr(), lats.data_ptr(),
+            valid.data_ptr(), cm_wloads.data_ptr(), cm_metrics.data_ptr(),
+            cm_lats.data_ptr(), cm_lval.data_ptr(), t, c, n, n_win * m_pad,
+            int(client_tile), int(bool(merge_mean)), stream)
+    _raise_on(code, "client_merge")
+    LAUNCHES["client_merge"] += 1
+    return cm_wloads, cm_metrics, cm_lats, cm_lval
+
+
+def sched_stream_grid_call(object_ids: torch.Tensor, lengths: torch.Tensor,
+                           valid: torch.Tensor, tables: torch.Tensor,
+                           seeds: torch.Tensor, win_rates: torch.Tensor, *,
+                           client_tile: int, merge_mean: bool = True, **kw):
+    """2-D (trials × clients) form: the stream kernel over the T·C
+    private-log streams, then the cross-client merge.  Operands as
+    `sched_stream_grid_streams`; ``client_tile``/``merge_mean`` as
+    `client_merge_call`.  Returns (choices, latencies, final_tables,
+    window_loads, metrics) with leading (T, C), then (cm_wloads,
+    cm_metrics, cm_lats, cm_lval)."""
+    per_stream = sched_stream_grid_streams(object_ids, lengths, valid,
+                                           tables, seeds, win_rates, **kw)
+    _, lats, _, wloads, metrics = per_stream
+    merged = client_merge_call(metrics, wloads, lats, valid,
+                               client_tile=client_tile,
+                               merge_mean=merge_mean)
+    return per_stream + merged
+
+
+def select_operands(object_ids: torch.Tensor, init_loads: torch.Tensor,
+                    n_servers: int):
+    """The stream operands of the legacy single-window model: a fresh log
+    holding the known loads with the uniform prior ``1/M``, every request
+    valid, one window of unit rates.  Returns (tables (C, 4, M_pad),
+    valid (C, N) int32, win_rates (C, 1, M_pad))."""
+    c, n = object_ids.shape
+    m_pad = init_loads.shape[-1]
+    dev = init_loads.device
+    tables = torch.zeros((c, N_ROWS, m_pad), dtype=torch.float32, device=dev)
+    tables[:, ROW_LOADS] = init_loads.to(torch.float32)
+    tables[:, ROW_PROBS] = torch.tensor(1.0 / n_servers, dtype=torch.float32)
+    tables[:, ROW_EST] = 1.0
+    valid = torch.ones((c, n), dtype=torch.int32, device=dev)
+    rates = torch.ones((c, 1, m_pad), dtype=torch.float32, device=dev)
+    return tables, valid, rates
+
+
+SELECT_KW = dict(alpha=0.25, window_dt=0.0, observe=False, renorm=False)
+
+
+def sched_select_call(object_ids: torch.Tensor, lengths: torch.Tensor,
+                      init_loads: torch.Tensor, seeds: torch.Tensor, *,
+                      n_servers: int, threshold: float, lam: float,
+                      policy: str):
+    """Legacy single-window entry (the paper's static-load model) as one
+    `sched_stream_call`: object_ids/lengths (C, N) int32/float32,
+    init_loads (C, M_pad), seeds (C,).  Uniform prior, no observation,
+    no drain, no renormalisation.  Returns (choices (C, N) int32,
+    final_loads (C, M_pad))."""
+    n = object_ids.shape[1]
+    tables, valid, rates = select_operands(object_ids, init_loads, n_servers)
+    choices, _, ftab, _, _ = sched_stream_call(
+        object_ids, lengths, valid, tables, seeds, rates,
+        n_servers=n_servers, window_size=n, threshold=threshold, lam=lam,
+        policy=policy, **SELECT_KW)
+    return choices, ftab[:, ROW_LOADS]

@@ -1,10 +1,13 @@
-"""Dispatch of the trial-grid stream kernel.
+"""Dispatch of the stream kernels.
 
-`sched_stream_batch` is the counterpart of the JAX package's
-``kernels/sched_select/ops.sched_stream_batch``: it checks the policy,
-pads the server axis to a multiple of 128 lanes, runs the kernel on a
-CUDA tensor (or raises — there is no fallback) and the plain PyTorch
-version on a CPU tensor, and slices the padding off again.
+`sched_stream_batch`, `sched_stream_grid` and `sched_select` are the
+counterparts of the JAX package's ``kernels/sched_select/ops`` entries of
+the same names: each checks the policy, pads the server axis to a
+multiple of 128 lanes, runs the kernel on a CUDA tensor (or raises —
+there is no fallback) and the plain PyTorch version on a CPU tensor, and
+slices the padding off again.  The ``*_plain`` twins run the plain
+version on whatever device the tensors lie on: what the kernels are held
+against on the card.
 """
 
 from __future__ import annotations
@@ -13,12 +16,29 @@ import functools
 
 import torch
 
-from repro_torch.core.policy_core import N_METRICS
-from repro_torch.kernels.sched_select.kernel import (POLICY_CODES,
-                                                     sched_stream_call)
-from repro_torch.kernels.sched_select.ref import sched_stream_batch_ref
+from repro_torch.core.policy_core import (N_CMETRICS, N_METRICS, ROW_LOADS,
+                                          resolve_client_tile)
+from repro_torch.kernels.sched_select.kernel import (MAX_WINDOW, POLICY_CODES,
+                                                     SELECT_KW,
+                                                     sched_select_call,
+                                                     sched_stream_call,
+                                                     sched_stream_grid_call,
+                                                     select_operands)
+from repro_torch.kernels.sched_select.ref import (sched_stream_batch_ref,
+                                                  sched_stream_grid_ref)
 
 POLICIES = tuple(POLICY_CODES)
+# policies of the legacy static entry point
+STATIC_POLICIES = ("minload", "two_random")
+
+
+def _pick(x: torch.Tensor, kernel, plain):
+    """The kernel for a CUDA tensor, the plain version for a CPU one."""
+    if x.device.type == "cuda":
+        return kernel
+    if x.device.type == "cpu":
+        return plain
+    raise ValueError(f"no sched_stream implementation for {x.device}")
 
 
 def _check_policy(policy: str, n_servers: int, nltr_n: int) -> None:
@@ -34,23 +54,23 @@ def _pad_servers(m: int) -> int:
     return max(-(-m // 128) * 128, 128)
 
 
+def _pad_lanes(x: torch.Tensor) -> torch.Tensor:
+    """float32, the server axis zero-padded to `_pad_servers` lanes."""
+    m = x.shape[-1]
+    x = x.to(torch.float32)
+    if _pad_servers(m) != m:
+        x = torch.nn.functional.pad(x, (0, _pad_servers(m) - m))
+    return x.contiguous()
+
+
 def pad_operands(object_ids, lengths, valid, tables, seeds, win_rates):
     """The operands as the kernel takes them: int32/float32/int32 request
     blocks and the table and rate stacks zero-padded to `_pad_servers`
     lanes, all contiguous."""
-    m = tables.shape[-1]
-    m_pad = _pad_servers(m)
-
-    def pad(x):
-        x = x.to(torch.float32)
-        if m_pad != m:
-            x = torch.nn.functional.pad(x, (0, m_pad - m))
-        return x.contiguous()
-
     return (object_ids.to(torch.int32).contiguous(),
             lengths.to(torch.float32).contiguous(),
-            valid.to(torch.int32).contiguous(), pad(tables), seeds,
-            pad(win_rates))
+            valid.to(torch.int32).contiguous(), _pad_lanes(tables), seeds,
+            _pad_lanes(win_rates))
 
 
 def _run(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
@@ -58,17 +78,26 @@ def _run(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
          win_rates: torch.Tensor, *, n_servers: int, window_size: int,
          threshold: float = 0.0, lam: float = 32.0, alpha: float = 0.25,
          window_dt: float = 0.0, policy: str = "ect", observe: bool = True,
-         renorm: bool = True, nltr_n: int = 2, probe_choices: int = 2):
+         renorm: bool = True, nltr_n: int = 2, probe_choices: int = 2,
+         **merge):
+    """Pad, run ``fn``, slice the padding off.  ``merge`` holds the 2-D
+    form's ``client_tile`` and ``merge_mean`` (see `_run_grid`)."""
     _check_policy(policy, n_servers, nltr_n)
     m = tables.shape[-1]
-    choices, lats, ftab, wloads, metrics = fn(
+    out = fn(
         *pad_operands(object_ids, lengths, valid, tables, seeds, win_rates),
         n_servers=n_servers, window_size=window_size, threshold=threshold,
         lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
         observe=observe, renorm=renorm, nltr_n=nltr_n,
-        probe_choices=probe_choices)
-    return (choices, lats, ftab[..., :m], wloads[..., :m],
-            metrics[:, :N_METRICS])
+        probe_choices=probe_choices, **merge)
+    choices, lats, ftab, wloads, metrics = out[:5]
+    per_stream = (choices, lats, ftab[..., :m], wloads[..., :m],
+                  metrics[..., :N_METRICS])
+    if not merge:
+        return per_stream
+    cm_wl, cm_met, cm_lats, cm_lval = out[5:]
+    return per_stream + (cm_wl[..., :m], cm_met[:, :N_CMETRICS], cm_lats,
+                         cm_lval)
 
 
 def sched_stream_batch(object_ids: torch.Tensor, *args, **kw):
@@ -86,16 +115,88 @@ def sched_stream_batch(object_ids: torch.Tensor, *args, **kw):
 
     A CUDA tensor goes through the CUDA kernel, which raises if it cannot
     run; a CPU tensor goes through the plain PyTorch version."""
-    if object_ids.device.type == "cuda":
-        fn = sched_stream_call
-    elif object_ids.device.type == "cpu":
-        fn = sched_stream_batch_ref
-    else:
-        raise ValueError(f"no sched_stream implementation for "
-                         f"{object_ids.device}")
-    return _run(fn, object_ids, *args, **kw)
+    return _run(_pick(object_ids, sched_stream_call, sched_stream_batch_ref),
+                object_ids, *args, **kw)
 
 
-# `sched_stream_batch` through the plain PyTorch version on whatever device
-# the tensors lie on: what the kernel is held against on the card.
 sched_stream_batch_plain = functools.partial(_run, sched_stream_batch_ref)
+
+
+def _run_grid(fn, object_ids: torch.Tensor, *args, client_tile=None,
+              merge_mean: bool = True, **kw):
+    return _run(fn, object_ids, *args,
+                client_tile=resolve_client_tile(object_ids.shape[1],
+                                                client_tile),
+                merge_mean=merge_mean, **kw)
+
+
+def sched_stream_grid(object_ids: torch.Tensor, *args, **kw):
+    """T trials of C private-log client streams (the per_client model) in
+    one launch of the stream kernel plus one of the cross-client merge.
+
+    object_ids/lengths/valid: (T, C, N) per-client slices (N = W *
+    window_size, padding rows invalid; a client with no valid row is a
+    phantom and is masked out of every merge); tables: (T, C, 4, M);
+    seeds: (T, C) uint32 states; win_rates: (T, W, M) per trial (a
+    trial's clients share its trace); then the keywords of
+    `sched_stream_batch`, plus ``client_tile`` (the merge's
+    association width, resolved by `resolve_client_tile`) and
+    ``merge_mean``.  Returns (choices (T, C, N) int32, latencies
+    (T, C, N), final_tables (T, C, 4, M), window_loads (T, C, W, M),
+    metrics (T, C, N_METRICS), cm_wloads (T, W, M) — the masked client
+    mean, or the raw masked sum when ``merge_mean`` is False — cm_metrics
+    (T, N_CMETRICS), cm_lats (T, C, N) masked latencies, cm_lval
+    (T, C, N) 0/1 validity).
+
+    A CUDA tensor goes through the CUDA kernels, which raise if they
+    cannot run; a CPU tensor goes through the plain PyTorch version."""
+    return _run_grid(_pick(object_ids, sched_stream_grid_call,
+                           sched_stream_grid_ref), object_ids, *args, **kw)
+
+
+sched_stream_grid_plain = functools.partial(_run_grid, sched_stream_grid_ref)
+
+
+def _select_plain(object_ids, lengths, init_loads, seeds, *, n_servers,
+                  threshold, lam, policy):
+    """Plain version of `kernel.sched_select_call`."""
+    n = object_ids.shape[1]
+    tables, valid, rates = select_operands(object_ids, init_loads, n_servers)
+    choices, _, ftab, _, _ = sched_stream_batch_ref(
+        object_ids, lengths, valid, tables, seeds, rates,
+        n_servers=n_servers, window_size=n, threshold=threshold, lam=lam,
+        policy=policy, **SELECT_KW)
+    return choices, ftab[:, ROW_LOADS]
+
+
+def _select(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
+            init_loads: torch.Tensor, seeds: torch.Tensor, *, n_servers: int,
+            threshold: float = 0.0, lam: float = 32.0,
+            policy: str = "minload"):
+    if policy not in STATIC_POLICIES:
+        raise ValueError(f"kernel policy must be one of {STATIC_POLICIES}")
+    n = object_ids.shape[1]
+    if n > MAX_WINDOW:
+        raise ValueError(f"sched_select schedules N={n} requests as one "
+                         f"window; the kernel caps a window at "
+                         f"MAX_WINDOW={MAX_WINDOW}")
+    choices, final = fn(object_ids.to(torch.int32).contiguous(),
+                        lengths.to(torch.float32).contiguous(),
+                        _pad_lanes(init_loads), seeds, n_servers=n_servers,
+                        threshold=threshold, lam=lam, policy=policy)
+    return choices, final[:, :init_loads.shape[-1]]
+
+
+def sched_select(object_ids: torch.Tensor, *args, **kw):
+    """C client streams under the paper's static-load model, each as one
+    window: object_ids/lengths (C, N), init_loads (C, M) true loads known
+    to each client's log, seeds (C,) uint32 states; keywords
+    ``n_servers``, ``threshold``, ``lam``, ``policy`` (minload or
+    two_random).  Returns (choices (C, N) int32, final_loads (C, M)).
+    N may not exceed the kernel's window cap `kernel.MAX_WINDOW`, on any
+    device."""
+    return _select(_pick(object_ids, sched_select_call, _select_plain),
+                   object_ids, *args, **kw)
+
+
+sched_select_plain = functools.partial(_select, _select_plain)

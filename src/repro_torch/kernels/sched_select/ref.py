@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the trial-grid stream kernel.
+"""Plain PyTorch versions of the stream kernels.
 
 `sched_stream_batch_ref` computes what ``csrc/sched_stream.cu`` computes,
 vectorised over the T streams with a Python loop over windows and
@@ -11,17 +11,26 @@ updates, the latency and the EWMA/est feedback, then at window close the
 at the end the fused metrics row.  It mirrors the JAX package's
 ``kernels/sched_select/ref.py`` and its Pallas kernel body.
 
-The CPU tests hold it against the JAX package; on the card it is what the
-kernel is held against, bit for bit on decisions, latencies, loads,
-window loads and metrics.
+`sched_stream_grid_ref` is the 2-D (trials x clients) form: the same
+per-stream function over the T·C streams, each reading its trial's rates,
+then `client_merge_ref`, the plain version of the ``client_merge`` kernel
+(the `policy_core` merge twins over the per-client outputs).
+
+The CPU tests hold them against the JAX package; on the card they are what
+the kernels are held against, bit for bit on decisions, latencies, loads,
+window loads, metrics and the merged outputs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.policy_core import (BIG, F32, MET_PAD, N_METRICS, f32,
+from repro_torch.core.policy_core import (BIG, F32, MET_N_VALID, MET_PAD,
+                                          N_CMETRICS, N_METRICS,
+                                          client_stream_metrics, f32,
                                           lane_sum, lcg_mod, lcg_step,
+                                          masked_client_mean,
+                                          masked_client_sum,
                                           permute_from_sorted,
                                           permute_to_sorted, rank_desc,
                                           recursive_average_bounds,
@@ -219,3 +228,62 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
     metrics = torch.zeros((t, MET_PAD), dtype=F32, device=dev)
     metrics[:, :N_METRICS] = stream_metrics(lats, valid_b, window_dt, ws)
     return choices, lats, final, wloads, metrics
+
+
+def client_merge_ref(metrics: torch.Tensor, wloads: torch.Tensor,
+                     lats: torch.Tensor, valid: torch.Tensor, *,
+                     client_tile: int, merge_mean: bool = True):
+    """Same operands and outputs as `kernel.client_merge_call`: the
+    per-trial cross-client merge of metrics (T, C, MET_PAD), wloads
+    (T, C, W, M_pad), lats and valid (T, C, N).  A client is real iff its
+    n_valid lane is positive."""
+    validb = valid != 0
+    cvalid = (metrics[..., MET_N_VALID] > 0).T               # (C, T)
+    cm_lats = torch.where(validb, lats, f32(0.0, lats))
+    cm_lval = validb.to(F32)
+    per_client = lambda x: x.movedim(1, 0)  # noqa: E731
+    if merge_mean:
+        cm_wl = masked_client_mean(per_client(wloads), cvalid, client_tile)
+        row = client_stream_metrics(
+            per_client(metrics), cvalid, client_tile,
+            merged_lats=per_client(cm_lats), merged_valid=per_client(validb))
+    else:
+        cm_wl = masked_client_sum(per_client(wloads), cvalid, client_tile)
+        row = client_stream_metrics(per_client(metrics), cvalid, client_tile)
+    cm_met = torch.zeros((lats.shape[0], MET_PAD), dtype=F32,
+                         device=lats.device)
+    cm_met[:, :N_CMETRICS] = row
+    return cm_wl, cm_met, cm_lats, cm_lval
+
+
+def sched_stream_grid_streams_ref(object_ids: torch.Tensor,
+                                  lengths: torch.Tensor, valid: torch.Tensor,
+                                  tables: torch.Tensor, seeds: torch.Tensor,
+                                  win_rates: torch.Tensor, **kw):
+    """Same operands and outputs as `kernel.sched_stream_grid_streams`:
+    `sched_stream_batch_ref` over the T·C streams of object_ids/lengths/
+    valid (T, C, N), tables (T, C, 4, M_pad) and seeds (T, C), each
+    reading its trial's row of win_rates (T, W, M_pad).  Returns the five
+    per-stream outputs with leading (T, C)."""
+    t, c = object_ids.shape[:2]
+    flat = lambda x: x.reshape((t * c,) + x.shape[2:])  # noqa: E731
+    rates = win_rates[:, None].expand((t, c) + win_rates.shape[1:])
+    out = sched_stream_batch_ref(flat(object_ids), flat(lengths),
+                                 flat(valid), flat(tables), flat(seeds),
+                                 flat(rates), **kw)
+    return tuple(x.reshape((t, c) + x.shape[1:]) for x in out)
+
+
+def sched_stream_grid_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
+                          valid: torch.Tensor, tables: torch.Tensor,
+                          seeds: torch.Tensor, win_rates: torch.Tensor, *,
+                          client_tile: int, merge_mean: bool = True, **kw):
+    """Same operands and outputs as `kernel.sched_stream_grid_call`:
+    `sched_stream_grid_streams_ref`, then `client_merge_ref` on its
+    outputs."""
+    per_stream = sched_stream_grid_streams_ref(
+        object_ids, lengths, valid, tables, seeds, win_rates, **kw)
+    _, lats, _, wloads, metrics = per_stream
+    return per_stream + client_merge_ref(
+        metrics, wloads, lats, valid, client_tile=client_tile,
+        merge_mean=merge_mean)

@@ -88,7 +88,7 @@ def test_run_stream_batch_matches_reference(policy):
         traces=jengine.ClusterTrace(jnp.asarray(times),
                                     jnp.asarray(trace_rates)),
         window_dt=DT, observe=True)
-    got, met = tengine.run_stream_batch(
+    got, met, merged = tengine.run_stream_batch(
         tstatlog.SchedState(**{k: torch.from_numpy(v)
                                for k, v in st.items()}),
         tengine.Workload(torch.from_numpy(obj), torch.from_numpy(lens),
@@ -107,6 +107,7 @@ def test_run_stream_batch_matches_reference(policy):
             f"{policy}: first divergence in {f} at trial {bad[0][0]}"
             + (f", window {bad[0][1] // WIN}" if a.ndim == 2 else ""))
     np.testing.assert_array_equal(met.numpy(), np.asarray(ref_met))
+    assert merged is None
     for f in ("n_assigned", "rates", "vclock", "free_at"):
         np.testing.assert_array_equal(getattr(got.state, f).numpy(),
                                       np.asarray(getattr(ref.state, f)),
@@ -134,11 +135,13 @@ def test_rates_at_event_boundaries():
 
 
 def test_run_stream_batch_rejects_client_axis():
-    st = tstatlog.init_state(tstatlog.LogConfig(n_servers=8), batch=2)
+    """A client axis on the workload that the states do not carry."""
+    st = tstatlog.init_state(tstatlog.LogConfig(n_servers=8), batch=2,
+                             device="cpu")
     works = tengine.Workload(torch.zeros((2, 3, 10), dtype=torch.int32),
                              torch.ones((2, 3, 10)),
                              torch.ones((2, 3, 10), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="Queue B2"):
+    with pytest.raises(ValueError, match=r"\(T,\) or \(T, C\)"):
         tengine.run_stream_batch(st, works, torch.zeros(2, dtype=torch.long),
                                  policy=PolicyConfig(name="rr"),
                                  log_cfg=tstatlog.LogConfig(n_servers=8),

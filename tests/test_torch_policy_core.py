@@ -137,7 +137,8 @@ def test_absorb_probs_and_init_table():
     want = np.asarray(jpc.absorb_probs(jnp.asarray(loads), 300.0, 37))
     # exp: XLA's and PyTorch's may differ by an ulp
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    np.testing.assert_array_equal(_np(tpc.init_table(37, batch=2)),
+    np.testing.assert_array_equal(_np(tpc.init_table(37, batch=2,
+                                                     device="cpu")),
                                   np.asarray(jpc.init_table(37, batch=2)))
 
 

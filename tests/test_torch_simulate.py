@@ -237,7 +237,7 @@ def test_run_trials_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("fields,match", [
-    (dict(client_model="per_client"), "Queue B2"),
+    (dict(prep="sequential"), "Queue A10"),
     (dict(backend="jax"), "Queue A5"),
     (dict(mesh_shape=(2,)), "Queue A10"),
     (dict(trial_tile=4), "Queue A10"),
@@ -250,7 +250,8 @@ def test_unported_knobs_raise_naming_roadmap(fields, match):
 
 def test_paper_field_errors():
     for fields in (dict(workload="huge"), dict(client_model="x"),
-                   dict(backend="tpu"), dict(n_clients=0)):
+                   dict(backend="tpu"), dict(n_clients=0),
+                   dict(client_model="per_client", client_tile=0)):
         with pytest.raises(ValueError):
             tsim.SimConfig(**fields)
     with pytest.raises(ValueError, match="scenario"):

@@ -34,7 +34,7 @@ def batch_case(t, m, n_win, win, seed):
     seeds, rates), about a fifth of the requests invalid."""
     rng = np.random.default_rng(seed)
     n = n_win * win
-    table = init_table(m).numpy()
+    table = init_table(m, device="cpu").numpy()
     return (rng.integers(0, 8 * m, (t, n)).astype(np.int32),
             rng.uniform(1.0, 20.0, (t, n)).astype(np.float32),
             rng.random((t, n)) > 0.2,
@@ -74,3 +74,48 @@ def assert_stream_outputs(got, want, window_size, ctx):
     for row, name in ((ROW_EWMA, "ewma"), (ROW_EST, "est")):
         np.testing.assert_allclose(tab[:, row], rtab[:, row], rtol=1e-6,
                                    atol=1e-6, err_msg=f"{ctx}: {name}")
+
+
+# (T, C, M, W, window, client_tile, merge_mean, phantom clients): odd M,
+# M=130, C not a multiple of client_tile, whole phantom clients (no valid
+# request), a padded last window, the merge as mean and as raw sum
+GRID_CASES = [
+    (2, 5, 37, 2, 8, 2, True, 1),
+    (3, 7, 130, 2, 6, 4, False, 2),
+]
+
+
+def grid_case(t, c, m, n_win, win, n_phantom, seed):
+    """Numpy operands of one 2-D call: (obj, lens, valid (T, C, N),
+    tables (T, C, 4, M) with random loads, seeds (T, C), rates (T, W, M)
+    per trial); about a fifth of the requests invalid, the last third of
+    the last window invalid, and the last ``n_phantom`` clients of every
+    trial without a valid request."""
+    rng = np.random.default_rng(seed)
+    n = n_win * win
+    valid = rng.random((t, c, n)) > 0.2
+    valid[..., n - win // 3:] = False
+    if n_phantom:
+        valid[:, c - n_phantom:] = False
+    tables = np.broadcast_to(init_table(m, device="cpu").numpy(),
+                             (t, c, 4, m)).copy()
+    tables[:, :, ROW_LOADS] = rng.uniform(0.0, 60.0, (t, c, m))
+    return (rng.integers(0, 8 * m, (t, c, n)).astype(np.int32),
+            rng.uniform(1.0, 20.0, (t, c, n)).astype(np.float32),
+            valid, tables.astype(np.float32),
+            rng.integers(0, 2 ** 32, (t, c)).astype(np.uint32),
+            rng.uniform(50.0, 300.0, (t, n_win, m)).astype(np.float32))
+
+
+def assert_grid_outputs(got, want, window_size, ctx):
+    """`assert_stream_outputs` per client stream, then the merged outputs
+    (cm_wloads, cm_metrics, cm_lats, cm_lval) bit-exact."""
+    flat = [np.asarray(x).reshape((-1,) + np.asarray(x).shape[2:])
+            for x in got[:5]]
+    want_flat = [np.asarray(x).reshape((-1,) + np.asarray(x).shape[2:])
+                 for x in want[:5]]
+    assert_stream_outputs(flat, want_flat, window_size, ctx)
+    for name, a, b in zip(("cm_wloads", "cm_metrics", "cm_lats", "cm_lval"),
+                          got[5:], want[5:]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=f"{ctx}: {name}")
