@@ -5,56 +5,78 @@
 From the root of a checkout, with one CUDA card visible.  It
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the CUDA kernels with nvcc (one source, one build) and prints
-   the ``-Xptxas -v`` register / shared-memory / spill lines;
+2. builds the CUDA kernels with nvcc (one nvcc per source, started
+   together) and prints the ``-Xptxas -v`` register / shared-memory /
+   spill lines;
 3. holds each kernel against its plain PyTorch version on the card:
    the stream kernel in its 1-D form for all eight policies at M in
    {37, 130, 300}, with a padded final window and T not a multiple of
    the warps per block; its 2-D (trials x clients) form and the
    cross-client merge for all eight policies at M in {37, 130}, with C
    not a multiple of the client tile, whole phantom clients, a padded
-   last window and the merge as mean and as raw sum; and the legacy
-   single-window `sched_select` wrapper;
-4. drives the two main paths, each with the launch counts set to 0 just
+   last window and the merge as mean and as raw sum; the legacy
+   single-window `sched_select` wrapper; and the flash attention kernel
+   at the JAX tests' six cases, non-causal, tile sweeps, ``is_global``,
+   gemma-2b's serving shape and danube-like shapes (head dim 120, GQA 4,
+   sliding window, ragged S);
+4. drives the main paths, each with the launch counts set to 0 just
    before and read just after: the paper's §4 Monte-Carlo sweep
    (`repro_torch.core.simulate.run_trials`, 100 servers, 2,000 requests,
    100 trials, window 100, mixed workload, transient stragglers) with one
    shared log, and the same sweep per_client (200 clients, window 10
-   after the clamp), each for the six engine policies; every
-   `TrialResult` field is held against the same prep scheduled by the
-   plain versions on the card;
+   after the clamp), each for the six engine policies, every
+   `TrialResult` field held against the same prep scheduled by the plain
+   versions on the card; then the LM serving path
+   (`repro_torch.launch.serve.serve`): gemma-2b at full width and depth
+   (random weights from seed 0), batch 4, prompt 512, 16 generated
+   tokens, whose prefill must launch the flash kernel once per layer; its
+   prefill logits are computed again with `attention_ref` in place of the
+   kernel, in bf16 and in f32 compute, and held to a tolerance;
 5. times each kernel (CUDA events), its plain version and one whole
    `run_trials` for ``ect``: shared log, and per_client at 200 and at 64
-   clients;
+   clients; the flash kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (a yardstick the port never calls)
+   at the serving shape and at S = 2048 and 8192; and `sched_select` at
+   N = 1024, M = 100;
 6. prints the ``kernels`` JSON line, then, last, the device JSON line.
 
 Any failure ends the run with a non-zero exit and no result line.  It
 never runs on the CPU: without a card it exits before printing results.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import policy_core, simulate  # noqa: E402
 from repro_torch.core.engine import KERNEL_POLICIES  # noqa: E402
 from repro_torch.core.policies import PolicyConfig  # noqa: E402
-from repro_torch.kernels.sched_select import _build  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.sched_select import kernel as skernel  # noqa: E402
 from repro_torch.kernels.sched_select import ops as sops  # noqa: E402
 from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 BODY_POLICIES = tuple(skernel.POLICY_CODES)
 # (T, M, W, window): T below / not a multiple of the 4 warps per block
@@ -66,6 +88,41 @@ KW = dict(threshold=2.0, lam=50.0, window_dt=0.02, observe=True,
           renorm=True)
 REPS = 20
 PER_CLIENT_NOTE = "per_client window clamp"
+
+# flash attention against its plain version: (B, S, H, KV, hd, window,
+# chunk, dtype, extra keywords) — the JAX tests' six cases, non-causal
+# (window ignored), tile sweeps, is_global, gemma-2b's serving shape,
+# danube-like shapes (head dim 120, GQA 4, window, ragged S)
+FLASH_CHECKS = (
+    (2, 64, 4, 2, 32, None, None, "float32", {}),
+    (1, 128, 4, 1, 64, None, None, "float32", {}),
+    (2, 96, 4, 4, 16, 32, None, "float32", {}),
+    (1, 128, 8, 2, 32, None, 32, "float32", {}),
+    (1, 64, 2, 2, 128, None, None, "bfloat16", {}),
+    (1, 80, 4, 2, 24, 24, None, "float32", {}),
+    (2, 64, 4, 4, 32, 8, None, "float32", dict(causal=False)),
+    (1, 128, 4, 2, 32, None, None, "float32", dict(block_q=16, block_k=16)),
+    (1, 128, 4, 2, 32, None, None, "float32", dict(block_q=32, block_k=64)),
+    (1, 130, 4, 2, 32, None, 32, "float32", dict(block_q=48, block_k=24)),
+    (1, 64, 4, 2, 32, 8, 16, "float32", dict(is_global=True)),
+    (4, 512, 8, 1, 256, None, None, "bfloat16", {}),
+    (1, 1000, 8, 2, 120, 64, None, "float32", {}),
+    (2, 1000, 32, 8, 120, 256, None, "bfloat16", {}),
+)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the serving path: gemma-2b at full width and depth
+SERVE_ARGS = ["--arch", "gemma-2b", "--batch", "4", "--prompt-len", "512",
+              "--gen", "16", "--seed", "0"]
+# prefill logits, kernel against attention_ref in its place.  In f32
+# compute the two routes differ only in the order of float32 sums: 1e-3
+# absolute.  In bf16 compute each route rounds every product to bf16 (a
+# step of 2**-8 relative) and a one-step difference moves on through the
+# 18 layers: 0.02 of the largest |logit| of the f32 route, five bf16 steps
+# at that logit (gemma-2b's random-weight logits reach about 14).
+SERVE_F32_TOL = 1e-3
+SERVE_BF16_REL_TOL = 0.02
+# (B, S) timed at gemma-2b's heads (H=8, KV=1, hd=256, bf16, causal)
+FLASH_TIMED = ((4, 512), (1, 2048), (1, 8192))
 
 
 def fail(msg: str) -> None:
@@ -239,17 +296,16 @@ def run_main_path(name, cfg, log, pols, dev, expect):
     just before and read just after; each run must launch exactly the
     kernels of ``expect`` once.  Returns (results, launch counts)."""
     results = {}
-    for k in skernel.LAUNCHES:
-        skernel.LAUNCHES[k] = 0
+    zero_counts()
     for p, pol in pols.items():
-        before = dict(skernel.LAUNCHES)
+        before = all_counts()
         results[p] = simulate.run_trials(0, cfg, pol, log)
-        step = {k: skernel.LAUNCHES[k] - before[k] for k in before}
+        step = {k: all_counts()[k] - before[k] for k in before}
         if step != {k: int(k in expect) for k in before}:
             fail(f"{name} run_trials({p}) launched {step}, expected one "
                  f"launch of each of {expect}")
     torch.cuda.synchronize()
-    counts = dict(skernel.LAUNCHES)
+    counts = all_counts()
     if counts != {k: len(pols) * int(k in expect) for k in counts}:
         fail(f"{name} main path launched {counts}")
     print(f"{name} main path: launches {counts}")
@@ -486,6 +542,246 @@ def time_per_client(cfg, log, pol, dev, card):
                  bound_by=m_by))
 
 
+
+# -- flash attention and the serving path --------------------------------------
+
+
+def flash_operands(b, s, h, kv, hd, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev,
+                        dtype=getattr(torch, dtype))
+            for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd))]
+
+
+def check_flash(dev):
+    """The flash kernel against its plain version on the card for every
+    case of FLASH_CHECKS; returns the largest absolute difference."""
+    worst = 0.0
+    for i, (b, s, h, kv, hd, win, ck, dtype, extra) in enumerate(
+            FLASH_CHECKS):
+        q, k, v = flash_operands(b, s, h, kv, hd, dtype, dev, seed=i)
+        kw = dict(window=win, chunk=ck, **extra)
+        got = fops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fops.flash_attention_plain(q, k, v, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = got.dtype == q.dtype and bool(torch.isfinite(got).all()) \
+            and err <= FLASH_TOL[dtype]
+        print(f"flash B={b} S={s} H={h}/{kv} hd={hd} window={win} "
+              f"chunk={ck} {dtype} {extra or ''}: max abs err {err:.3g} "
+              f"(tolerance {FLASH_TOL[dtype]:g}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash kernel disagrees with its plain version ({i})")
+        worst = max(worst, err)
+    return worst
+
+
+def zero_counts():
+    for k in skernel.LAUNCHES:
+        skernel.LAUNCHES[k] = 0
+    fkernel.LAUNCHES["flash_attention"] = 0
+
+
+def all_counts():
+    return {**skernel.LAUNCHES, **fkernel.LAUNCHES}
+
+
+def run_serve_path(card):
+    """`serve` of gemma-2b at full width, counts zeroed just before and
+    read just after: one flash launch per layer, no other kernel."""
+    args = serve.parse_args(SERVE_ARGS)
+    zero_counts()
+    out = serve.serve(args)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    n_layers = get_config(args.arch, args.reduced).n_layers
+    if counts != dict({k: 0 for k in counts}, flash_attention=n_layers):
+        fail(f"serve main path launched {counts}, expected "
+             f"{n_layers} flash_attention launches")
+    print(f"serve main path: launches {counts}")
+    tokens = out["tokens"]
+    vocab = get_config(args.arch, args.reduced).padded_vocab
+    if tokens.shape != (args.batch, args.gen) or not (
+            (tokens >= 0) & (tokens < vocab)).all():
+        fail(f"serve returned tokens of shape {tokens.shape} outside "
+             f"[0, {vocab})")
+    reqs = args.batch * args.gen
+    print(f"serve gemma-2b on {card}: batch {args.batch}, prompt "
+          f"{args.prompt_len}, gen {args.gen}: prefill {out['prefill_s']:.4f}"
+          f" s, decode {out['decode_s']:.4f} s ({out['tok_per_s']:.2f} "
+          f"tok/s over {args.batch * (args.gen - 1)} decoded tokens; "
+          f"{reqs} tokens in all)")
+    print(f"serve tokens: {tokens.tolist()}")
+    return args, out, counts["flash_attention"]
+
+
+def check_serve_logits(args, tokens):
+    """The serving run's prefill logits again, with the kernel and with
+    `attention_ref` in its place, in f32 and in the run's bf16 compute;
+    the first served token is the bf16 kernel logits' argmax."""
+    cfg, params, prompts = serve.setup(args)
+    batch = {"tokens": prompts}
+    logits = {}
+    for compute in ("float32", "bfloat16"):
+        run_cfg = dataclasses.replace(cfg, compute_dtype=compute,
+                                      use_pallas_attn=True)
+        kern = T.forward_train(params, batch, run_cfg)
+        with mock.patch.object(fops, "flash_attention",
+                               fops.flash_attention_plain):
+            ref = T.forward_train(params, batch, run_cfg)
+        torch.cuda.synchronize()
+        for x in (kern, ref):
+            if x.shape != (*prompts.shape, cfg.padded_vocab) or not bool(
+                    torch.isfinite(x).all()):
+                fail(f"prefill logits ({compute}) have shape "
+                     f"{tuple(x.shape)} or non-finite values")
+        logits[compute] = (kern.float(), ref.float())
+        del kern, ref
+    del params
+    k32, r32 = logits["float32"]
+    k16, r16 = logits["bfloat16"]
+    scale = r32.abs().max().item()
+    err32 = (k32 - r32).abs().max().item()
+    err16 = (k16 - r16).abs().max().item()
+    tol16 = SERVE_BF16_REL_TOL * scale
+    print(f"serve prefill logits, float32 compute: kernel vs attention_ref "
+          f"max abs err {err32:.4g} (tolerance {SERVE_F32_TOL:g}; max "
+          f"|logit| {scale:.4g}) -> "
+          f"{'ok' if err32 <= SERVE_F32_TOL else 'FAIL'}")
+    print(f"serve prefill logits, bfloat16 compute: kernel vs attention_ref "
+          f"max abs err {err16:.4g} (tolerance {tol16:.4g}); each against "
+          f"the f32 route: kernel {(k16 - r32).abs().max().item():.4g}, "
+          f"attention_ref {(r16 - r32).abs().max().item():.4g} -> "
+          f"{'ok' if err16 <= tol16 else 'FAIL'}")
+    if err32 > SERVE_F32_TOL or err16 > tol16:
+        fail("prefill logits through the kernel disagree with the "
+             "attention_ref route")
+    first = torch.argmax(k16[:, -1], dim=-1).cpu().numpy()
+    if not (first == tokens[:, 0]).all():
+        fail("the first served token is not the prefill logits' argmax")
+    del logits, k32, r32, k16, r16
+    torch.cuda.empty_cache()
+
+
+def device_ms(event) -> float:
+    """An averaged profiler event's own device time, in ms."""
+    return event.self_device_time_total / 1e3
+
+
+def profile_serve(args, prefill_s, card):
+    """Where the serving time goes: the prefill's forward pass alone (the
+    rest of the prefill is the prompt's replay through the decode path),
+    one decode step, and a torch.profiler trace of three decode steps:
+    the device's busy share and the kernels that take most of it."""
+    cfg, params, prompts = serve.setup(args)
+    b, s = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.forward_train(params, {"tokens": prompts},
+                    dataclasses.replace(cfg, use_pallas_attn=True))
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    caches = T.init_caches(cfg, b, s + args.gen, prompts.device)
+    tok = prompts[:, :1]
+    T.decode_step(params, caches, tok, 0, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    T.decode_step(params, caches, tok, 1, cfg)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            T.decode_step(params, caches, tok, 2 + i, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(device_ms(e) for e in events)
+    top = sorted(events, key=device_ms, reverse=True)[:6]
+    print(f"serve breakdown on {card}: prefill {prefill_s:.4f} s = forward "
+          f"{fwd_s:.4f} s + replay of {s} prompt tokens "
+          f"{prefill_s - fwd_s:.4f} s ({(prefill_s - fwd_s) / s * 1e3:.2f} "
+          f"ms/token); one decode step {step_s * 1e3:.2f} ms")
+    if busy_ms == 0.0:
+        print("  profiler: no device time in the trace (busy share not "
+              "measured)")
+    else:
+        print(f"  profiler, 3 decode steps: wall {wall_ms:.2f} ms, device "
+              f"busy {busy_ms:.2f} ms (busy share {busy_ms / wall_ms:.3f})")
+        for e in top:
+            print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+    del params, caches
+    torch.cuda.empty_cache()
+
+
+def flash_bound(b, s, h, kv, hd, elem_bytes=2):
+    """Least time of one causal call: q and o, k and v once each over
+    HBM; the two products over the (row, col) pairs the causal mask keeps,
+    2 FLOPs per multiply-add, at the bf16 tensor-core peak."""
+    bytes_moved = elem_bytes * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+    pairs = s * (s + 1) // 2
+    flops = 2 * 2 * b * h * pairs * hd
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved,
+            flops)
+
+
+def time_flash(dev, card):
+    """The flash kernel, its plain version and SDPA by CUDA events at the
+    FLASH_TIMED shapes; returns the serving shape's numbers."""
+    h, kv, hd = 8, 1, 256
+    first = None
+    for b, s in FLASH_TIMED:
+        q, k, v = flash_operands(b, s, h, kv, hd, "bfloat16", dev, seed=s)
+        kernel_ms = timed_ms(lambda: fops.flash_attention(q, k, v))
+        plain_ms = timed_ms(lambda: fops.flash_attention_plain(q, k, v))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        library_ms = timed_ms(sdpa)
+        lib_err = (sdpa().transpose(1, 2).float()
+                   - fops.flash_attention(q, k, v).float()).abs().max().item()
+        bound_ms, bound_by, nbytes, flops = flash_bound(b, s, h, kv, hd)
+        print(f"timing flash_attention B={b} S={s} H={h}/{kv} hd={hd} bf16 "
+              f"causal on {card}:")
+        print(f"  kernel  {kernel_ms:.4f} ms/launch; plain {plain_ms:.3f} ms;"
+              f" sdpa (library) {library_ms:.4f} ms (vs kernel max abs "
+              f"{lib_err:.3g}); bound {bound_ms:.5f} ms ({bound_by}: "
+              f"{nbytes} bytes, {flops} FLOP)")
+        if first is None:
+            first = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library_ms)
+        del q, k, v, qt, kt, vt
+    return first
+
+
+def time_select(dev, card):
+    """`sched_select` (minload) at C=16 streams of N=1024, M=100."""
+    rng = np.random.default_rng(11)
+    c, n, m = 16, 1024, 100
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 8 * m, (c, n)).astype(np.int32),
+        rng.uniform(1.0, 20.0, (c, n)).astype(np.float32),
+        rng.uniform(0.0, 60.0, (c, m)).astype(np.float32),
+        rng.integers(0, 2 ** 32, (c,)))]
+    kw = dict(n_servers=m, threshold=2.0, lam=50.0, policy="minload")
+    kernel_ms = timed_ms(lambda: sops.sched_select(*args, **kw))
+    plain_ms = once_ms(lambda: sops.sched_select_plain(*args, **kw))
+    # bytes: objects, lengths, loads and seeds in, choices and loads out;
+    # f32 operations per request: the argmin's compare and the probability
+    # row's update on every server lane
+    nbytes = 4 * (2 * c * n + c * m + c + c * n + c * m)
+    ops = c * n * 2 * m
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"timing sched_select minload C={c} N={n} M={m} on {card}: "
+          f"kernel {kernel_ms:.4f} ms/launch, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {ops} f32 ops)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
@@ -496,13 +792,17 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
     warnings.filterwarnings("ignore", message=PER_CLIENT_NOTE)
 
+    sources = (skernel.SOURCE, fkernel.SOURCE)
     t0 = time.perf_counter()
-    _build.build(skernel.SOURCE)
-    print(f"built {skernel.SOURCE} in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log(skernel.SOURCE).splitlines():
-        if "registers" in line or "spill" in line or "smem" in line \
-                or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    print(f"built {', '.join(src.name for src in sources)} in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in sources:
+        for line in _build.build_log(src).splitlines():
+            if "registers" in line or "spill" in line or "smem" in line \
+                    or "Compiling entry" in line:
+                print(f"  ptxas {src.name}: {line.strip()}")
 
     # -- kernels against their plain versions ------------------------------
     err_1d = 0.0
@@ -552,6 +852,14 @@ def main() -> None:
     time_per_client(c64, simulate.default_log_cfg(c64), pols["ect"], dev,
                     card)
 
+    # -- flash attention, then the serving path at full width --------------
+    err_flash = check_flash(dev)
+    serve_args, serve_out, flash_launches = run_serve_path(card)
+    check_serve_logits(serve_args, serve_out["tokens"])
+    profile_serve(serve_args, serve_out["prefill_s"], card)
+    t_flash = time_flash(dev, card)
+    time_select(dev, card)
+
     src = "src/repro_torch/kernels/sched_select/csrc/sched_stream.cu"
     ref = "src/repro/kernels/sched_select/kernel.py"
     print(json.dumps({"kernels": [
@@ -564,7 +872,12 @@ def main() -> None:
              library_ms=None, **t_grid),
         dict(name="client_merge", route="cuda", source=src,
              replaces=f"{ref}:558", launches=pc_counts["client_merge"],
-             max_abs_err=err_merge, library_ms=None, **t_merge)]}))
+             max_abs_err=err_merge, library_ms=None, **t_merge),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attn.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:33",
+             launches=flash_launches, max_abs_err=err_flash, **t_flash)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,43 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig (+ reduced twin).
+
+The ids are the JAX package's.  The three dense, attention-only
+architectures run in the port; the others need blocks the port has not
+ported yet and raise naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+}
+
+# what each architecture not yet in the port waits for
+_UNPORTED: Dict[str, str] = {
+    "whisper-tiny": "the encoder-decoder stack and cross-attention",
+    "qwen2-72b": "the sharded multi-card stack (a 72B model)",
+    "qwen2-vl-72b": "M-RoPE and the sharded multi-card stack",
+    "xlstm-1.3b": "the mLSTM/sLSTM blocks",
+    "jamba-v0.1-52b": "the mamba block and MoE",
+    "mixtral-8x22b": "MoE",
+    "llama4-scout-17b-a16e": "MoE and chunked-local attention layers",
+}
+
+ARCH_IDS: List[str] = list(_MODULES) + list(_UNPORTED)
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch in _UNPORTED:
+        raise NotImplementedError(
+            f"{arch} needs {_UNPORTED[arch]}, not ported yet "
+            "(ROADMAP Queue A13)")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
+    mod = importlib.import_module(_MODULES[arch])
+    return mod.REDUCED if reduced else mod.CONFIG

@@ -1,4 +1,8 @@
-"""Carry a simulation's prepared inputs across as plain numpy arrays.
+"""Carry the JAX package's inputs across as plain numpy arrays.
+
+Two kinds: a simulation's prepared inputs (`from_prep`), and a language
+model's configuration and parameters (`model_config_from_fields`,
+`lm_params_from_numpy`).
 
 The JAX package draws its trial inputs with threefry, which the port does
 not reproduce (its own `core.simulate._prep_trials` draws the same
@@ -6,19 +10,25 @@ distributions from a ``torch.Generator``).  To hold the port's scheduling
 and post stages against the reference on identical inputs, a caller
 computes the reference's prep, turns every array into numpy, and hands
 them to `from_prep`: the result feeds `core.simulate._sched_trials` and
-`_post_trials` directly.  This module takes numpy arrays only and imports
-nothing of the JAX package.
+`_post_trials` directly.  Likewise a language model's parameters, drawn
+by the reference's ``init_lm``, load into the port's `LM` so both compute
+the same function.  This module takes numpy arrays and plain Python
+values only and imports nothing of the JAX package.  Every function lands
+its tensors on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import ClusterTrace, Workload
 from repro_torch.core.statlog import SchedState
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import MoEConfig, ModelConfig, SSMConfig
 
 
 class PrepInputs(NamedTuple):
@@ -40,14 +50,16 @@ def _t(a, dtype, device) -> torch.Tensor:
 def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
               log, n_assigned, rates, vclock, free_at, seeds,
               trace_times=None, trace_rates=None,
-              device="cpu") -> PrepInputs:
+              device="cuda") -> PrepInputs:
     """Build `PrepInputs` from numpy arrays with a leading trial axis:
     ``init_loads``/``straggler_mask`` (T, M); the workload's
     ``object_ids``/``lengths``/``valid`` (T, R); the state's ``log``
     (T, 4, M), ``n_assigned`` (T, M), ``rates`` (T, M), ``vclock`` (T,)
     and ``free_at`` (T, M); the optional trace's ``trace_times`` (T, E)
     and ``trace_rates`` (T, E, M); and ``seeds`` uint32, (T,) for the
-    shared log or (T, C) for per_client (one state per client)."""
+    shared log or (T, C) for per_client (one state per client).  Lands on
+    the card unless ``device="cpu"`` (`resolve_device`)."""
+    device = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     works = Workload(object_ids=_t(object_ids, i32, device),
                      lengths=_t(lengths, f32, device),
@@ -67,3 +79,45 @@ def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
                       straggler_mask=_t(straggler_mask, torch.bool, device),
                       works=works, states=states, traces=traces,
                       seeds=seeds64)
+
+
+def model_config_from_fields(d: Mapping[str, Any]) -> ModelConfig:
+    """The port's `ModelConfig` from ``dataclasses.asdict`` of the JAX
+    package's: the nested ``moe``/``ssm`` dicts become `MoEConfig`/
+    `SSMConfig`."""
+    fields = dict(d)
+    if fields.get("moe") is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    if "ssm" in fields:
+        fields["ssm"] = SSMConfig(**fields["ssm"])
+    return ModelConfig(**fields)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                         device="cuda") -> T.LM:
+    """Load the JAX package's ``init_lm`` pytree, as numpy arrays, into
+    the port's `LM`: ``embed``/``final_norm``/``head`` as they are, and
+    each layer's block from ``groups/pos_<p>/...``, whose leaves carry a
+    leading ``n_groups`` axis (layer ``g * G + p`` is entry ``g`` of
+    position ``p``).  dtypes are kept."""
+    T._check_supported(cfg)
+    dev = resolve_device(device)
+
+    def tensors(group, index=None) -> Dict[str, torch.Tensor]:
+        """``group``'s arrays (entry ``index`` of each) on ``dev``."""
+        pick = (lambda a: a) if index is None else (lambda a: a[index])
+        return {k: torch.from_numpy(np.array(pick(a))).to(dev)
+                for k, a in group.items()}
+
+    groups = tree["groups"]
+    blocks = []
+    for li in range(cfg.n_layers):
+        g, pos = divmod(li, cfg.group_size)
+        block = groups[f"pos_{pos}"]
+        if set(block) != {"attn_norm", "attn", "mlp_norm", "mlp"}:
+            raise ValueError(f"layer {li} holds {sorted(block)}; the port "
+                             "loads attention blocks with a dense MLP")
+        blocks.append({name: tensors(sub, g) for name, sub in block.items()})
+    head = tensors(tree["head"]) if "head" in tree else None
+    return T.LM(tensors(tree["embed"]), tensors(tree["final_norm"]), head,
+                blocks)

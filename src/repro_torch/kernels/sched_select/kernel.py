@@ -15,15 +15,16 @@ operands on a CUDA device; `ops` does the padding and the dispatch.
 from __future__ import annotations
 
 import ctypes
+from pathlib import Path
 
 import torch
 
 from repro_torch.core.policy_core import (MET_PAD, N_ROWS, ROW_EST,
                                           ROW_LOADS, ROW_PROBS,
                                           window_decrements)
-from repro_torch.kernels.sched_select import _build
+from repro_torch.kernels import _build
 
-SOURCE = "sched_stream.cu"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_stream.cu"
 # policy codes of the CUDA source's `Policy` enum
 POLICY_CODES = {"minload": 0, "two_random": 1, "ect": 2, "trh": 3, "rr": 4,
                 "two_choice": 5, "mlml": 6, "nltr": 7}

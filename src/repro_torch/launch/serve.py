@@ -1,0 +1,109 @@
+"""Batched serving: prefill a batch of prompts, then decode.
+
+The port's counterpart of the JAX package's ``launch/serve.py``, on the
+card by default::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch gemma-2b --batch 4 --prompt-len 512 --gen 16
+
+The prompt goes through `forward_prefill` with the flash kernel
+(``use_pallas_attn``) and fills the ring KV caches; the first token is the
+argmax of the prefill's last logits, then ``gen - 1`` greedy
+`decode_step`s follow.  Weights are random, from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.train import make_decode_step
+
+PROMPT_SEED = 2     # the prompts' own stream, as in the JAX serve module
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def generate(params: T.LM, prompts: torch.Tensor, cfg: ModelConfig,
+             gen: int):
+    """Greedy generation of ``gen`` tokens after ``prompts`` (B, S).
+    Returns (tokens (B, gen) int64, prefill seconds, decode seconds), each
+    phase ended by a synchronize on the card."""
+    dev = prompts.device
+    s = prompts.shape[1]
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = T.forward_prefill(
+        params, {"tokens": prompts},
+        dataclasses.replace(cfg, use_pallas_attn=True), cache_len=s + gen)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    decode = make_decode_step(cfg)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, caches = decode(params, caches, tok, s + i)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return torch.cat(out, dim=1), t_prefill, t_decode
+
+
+def setup(args):
+    """(cfg, params, prompts (B, S) int64) of a serving run: the same
+    for the same arguments, so a caller can rebuild a run's inputs."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    params = T.init_lm(torch.Generator(device=dev).manual_seed(args.seed),
+                       cfg, device=dev)
+    prompts = torch.randint(
+        1, cfg.vocab_size, (args.batch, args.prompt_len), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(PROMPT_SEED))
+    return cfg, params, prompts
+
+
+def serve(args) -> dict:
+    cfg, params, prompts = setup(args)
+    b, s = prompts.shape
+    tokens, t_prefill, t_decode = generate(params, prompts, cfg, args.gen)
+    gen = tokens.cpu().numpy()
+    toks_per_s = b * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"[serve] arch={cfg.name} batch={b} prompt={s} gen={args.gen}")
+    print(f"[serve] prefill {t_prefill:.2f}s, decode {t_decode:.2f}s "
+          f"({toks_per_s:.1f} tok/s)")
+    print(f"[serve] sample row 0: {gen[0][:16].tolist()}")
+    return {"tokens": gen, "tok_per_s": toks_per_s, "prefill_s": t_prefill,
+            "decode_s": t_decode}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main():
+    serve(parse_args())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,241 @@
+"""Decoder-LM assembly over attention blocks: the port's counterpart of
+the JAX package's ``models/transformer.py``.
+
+The parameters are an `LM` module: the embedding, the final norm, an
+optional untied head and one `Block` per layer in layer order (the JAX
+package stacks layer groups on a leading axis and scans them; the port
+loops over the layers in Python).  Each block's parameters sit in
+``nn.ParameterDict``s named as the JAX pytree's leaves.  Nothing here
+trains: parameters carry no gradient, and the entry points run under
+``torch.no_grad()``.
+
+Three entry points:
+
+* ``forward_train(params, batch, cfg)``   -> logits (B, S, Vp)
+* ``forward_prefill(params, batch, cfg)`` -> logits, decode caches
+* ``decode_step(params, caches, tokens, pos, cfg)`` -> logits, caches
+
+The port runs ``"attn"`` blocks with dense MLPs; MoE, mamba, mLSTM and
+sLSTM blocks raise naming ROADMAP Queue A13.  Decode caches are a list
+with one ring cache per layer, updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue "
+                               "A13)")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for kind in cfg.group_pattern:
+        if kind != "attn":
+            raise _unported(f"the {kind!r} block")
+    if cfg.moe is not None:
+        raise _unported("the MoE block")
+    if cfg.enc_dec:
+        raise _unported("the encoder-decoder stack")
+
+
+def _param_dict(tensors: Params) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
+
+
+class Block(nn.Module):
+    """One attention block: ``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``."""
+
+    def __init__(self, groups: Dict[str, Params]):
+        super().__init__()
+        for name in ("attn_norm", "attn", "mlp_norm", "mlp"):
+            setattr(self, name, _param_dict(groups[name]))
+
+
+class LM(nn.Module):
+    """A decoder LM's parameters: ``embed``, ``final_norm``, ``head``
+    (None when tied) and ``blocks`` in layer order."""
+
+    def __init__(self, embed: Params, final_norm: Params,
+                 head: Optional[Params], blocks: List[Dict[str, Params]]):
+        super().__init__()
+        self.embed = _param_dict(embed)
+        self.final_norm = _param_dict(final_norm)
+        self.head = None if head is None else _param_dict(head)
+        self.blocks = nn.ModuleList(Block(b) for b in blocks)
+
+
+# ===========================================================================
+# init
+# ===========================================================================
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig,
+                device) -> Dict[str, Params]:
+    f32 = torch.float32
+    return {"attn_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
+            "attn": A.init_attention(gen, cfg, device),
+            "mlp_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
+            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                              cfg.pdtype, device)}
+
+
+def group_flags(cfg: ModelConfig) -> torch.Tensor:
+    """(n_groups, G) bool — per-layer 'global attention' flag (llama4)."""
+    flags = torch.zeros((cfg.n_groups, cfg.group_size), dtype=torch.bool)
+    for li in range(cfg.n_layers):
+        flags[li // cfg.group_size, li % cfg.group_size] = \
+            cfg.layer_is_global_attn(li)
+    return flags
+
+
+@torch.no_grad()
+def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> LM:
+    """Random parameters from ``gen`` (a generator on ``device``): the
+    embedding, the head when untied, then each layer in order.  The
+    numbers differ from the JAX package's threefry draws; carry its
+    parameters across with `interop.lm_params_from_numpy` to compare."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    embed = L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype,
+                             dev)
+    head = None
+    if not cfg.tie_embeddings:
+        head = {"w": L.he_init(gen, (cfg.d_model, cfg.padded_vocab),
+                               cfg.pdtype, fan_in=cfg.d_model, device=dev)}
+    blocks = [_init_block(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    final_norm = L.init_norm(cfg.norm, cfg.d_model, torch.float32, dev)
+    return LM(embed, final_norm, head, blocks)
+
+
+# ===========================================================================
+# forward (train / prefill)
+# ===========================================================================
+
+def _apply_mlp_or_moe(p: Block, x: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """The MLP half of a block (MoE layers raise at init)."""
+    h = L.apply_norm(cfg.norm, p.mlp_norm, x)
+    return x + L.apply_mlp(p.mlp, h, cfg)
+
+
+def _block_train(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
+                 positions: torch.Tensor, is_global: bool) -> torch.Tensor:
+    if kind != "attn":
+        raise _unported(f"the {kind!r} block")
+    h = L.apply_norm(cfg.norm, p.attn_norm, x)
+    # llama4: NoPE on global layers
+    x = x + A.self_attend(p.attn, h, positions, cfg, is_global=is_global,
+                          use_rope=not is_global)
+    return _apply_mlp_or_moe(p, x, cfg)
+
+
+def backbone(params: LM, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor) -> torch.Tensor:
+    """Run every layer over embedded activations x: (B, S, d)."""
+    flags = group_flags(cfg).tolist()
+    for li, block in enumerate(params.blocks):
+        g, pos = divmod(li, cfg.group_size)
+        x = _block_train(block, x, cfg.block_kind(pos), cfg, positions,
+                         flags[g][pos])
+    return x
+
+
+@torch.no_grad()
+def forward_train(params: LM, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, padded_vocab) of the teacher-forced forward over
+    ``batch["tokens"]`` (B, S).  (The JAX function also returns the MoE
+    auxiliary losses; the port has no MoE yet.)"""
+    tokens = batch["tokens"]
+    if "patch_embeds" in batch:
+        raise _unported("the VLM patch-embedding frontend")
+    b, s = tokens.shape
+    x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = backbone(params, x, cfg, positions)
+    x = L.apply_norm(cfg.norm, params.final_norm, x)
+    return L.unembed(params.head, params.embed, x, cfg.cdtype,
+                     softcap=cfg.logit_softcap)
+
+
+# ===========================================================================
+# decode (serve path)
+# ===========================================================================
+
+def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
+                device="cuda") -> List[Params]:
+    """One empty ring cache per layer, in layer order."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    sizes = []
+    for pos in range(cfg.group_size):
+        # a position's layers may mix local/global across groups (llama4):
+        # size for the largest receptive field among them
+        has_global = any(cfg.layer_is_global_attn(g * cfg.group_size + pos)
+                         for g in range(cfg.n_groups))
+        sizes.append(A.cache_size_for(cfg, seq_len, has_global))
+    return [A.init_kv_cache(cfg, batch, sizes[li % cfg.group_size], dev)
+            for li in range(cfg.n_layers)]
+
+
+def _block_decode(p: Block, cache: Params, x: torch.Tensor, kind: str,
+                  cfg: ModelConfig, pos: int, is_global: bool):
+    if kind != "attn":
+        raise _unported(f"the {kind!r} block")
+    h = L.apply_norm(cfg.norm, p.attn_norm, x)
+    y, cache = A.decode_attend(p.attn, h, cache, pos, cfg,
+                               is_global=is_global, use_rope=not is_global)
+    return _apply_mlp_or_moe(p, x + y, cfg), cache
+
+
+def _decode_layers(params: LM, caches: List[Params], tokens: torch.Tensor,
+                   pos: int, cfg: ModelConfig) -> torch.Tensor:
+    """Embed one token per row and run it through every layer, writing
+    each layer's cache in place; returns the last layer's activations."""
+    x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
+    flags = group_flags(cfg).tolist()
+    for li, block in enumerate(params.blocks):
+        g, p_i = divmod(li, cfg.group_size)
+        x, caches[li] = _block_decode(block, caches[li], x,
+                                      cfg.block_kind(p_i), cfg, pos,
+                                      flags[g][p_i])
+    return x
+
+
+@torch.no_grad()
+def decode_step(params: LM, caches: List[Params], tokens: torch.Tensor,
+                pos: int, cfg: ModelConfig):
+    """One decode step. tokens: (B, 1); pos: absolute position.  Returns
+    (logits (B, 1, Vp), caches), the caches updated in place."""
+    x = _decode_layers(params, caches, tokens, pos, cfg)
+    x = L.apply_norm(cfg.norm, params.final_norm, x)
+    logits = L.unembed(params.head, params.embed, x, cfg.cdtype,
+                       softcap=cfg.logit_softcap)
+    return logits, caches
+
+
+@torch.no_grad()
+def forward_prefill(params: LM, batch: Dict[str, torch.Tensor],
+                    cfg: ModelConfig, cache_len: Optional[int] = None):
+    """Prefill: the train forward's logits, and decode caches filled by
+    replaying the prompt one token at a time (exact).  The replay skips
+    the per-step unembedding, whose logits it would discard."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    caches = init_caches(cfg, b, cache_len or s, tokens.device)
+    logits = forward_train(params, batch, cfg)
+    for t in range(s):
+        _decode_layers(params, caches, tokens[:, t:t + 1], t, cfg)
+    return logits, caches

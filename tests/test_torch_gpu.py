@@ -1,24 +1,35 @@
 """Tests that need the card (marker ``gpu``): the CUDA kernels against
 their plain PyTorch versions on the same CUDA tensors.
 
-Bit-exact on choices, latencies, loads, window loads, metrics and the
-merged outputs (cm_wloads, cm_metrics, cm_lats, cm_lval); probs to 1e-6
-and ewma/est to 1e-6 relative (the contract the CPU tests hold against
-the JAX package).  Without a card every test skips with a
-reason; the file imports torch and numpy only, so it runs where JAX is
-not installed:
+Stream kernels: bit-exact on choices, latencies, loads, window loads,
+metrics and the merged outputs (cm_wloads, cm_metrics, cm_lats, cm_lval);
+probs to 1e-6 and ewma/est to 1e-6 relative (the contract the CPU tests
+hold against the JAX package).  Flash attention: 2e-5 in float32 and
+2e-2 in bfloat16, the JAX package's own tolerances; the reduced serving
+path on the card against the same parameters on the CPU.  Without a card
+every test skips with a reason; the file imports torch and numpy only, so
+it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import simulate
 from repro_torch.core.policies import PolicyConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.sched_select import kernel as tkernel
 from repro_torch.kernels.sched_select import ops as tops
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as T
+from torch_flash_cases import DANUBE_CASE, FLASH_CASES, flash_inputs
 from torch_parity import (BATCH_CASES, GRID_CASES, KW, assert_grid_outputs,
                           assert_stream_outputs, batch_case, grid_case,
                           port_batch)
@@ -144,3 +155,70 @@ def test_sched_select_on_card_matches_plain(policy, cuda_device):
     assert tkernel.LAUNCHES["sched_stream"] == before + 1
     want = tops.sched_select_plain(*args, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the kernel's own shapes beyond the JAX tests' cases: gemma-2b's head
+# (hd 256, MQA group 8) at a short S, and tiles below the 64-row maximum
+CARD_FLASH_CASES = FLASH_CASES + [
+    DANUBE_CASE, (2, 130, 8, 1, 256, None, None, "bfloat16"),
+    (1, 70, 4, 2, 64, 16, None, "bfloat16")]
+
+
+def _card_flash(case, seed, device):
+    b, s, h, kv, hd, _, _, dtype = case
+    return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
+            for a in flash_inputs(b, s, h, kv, hd, seed)]
+
+
+@pytest.mark.parametrize("case", CARD_FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain_on_card(case, cuda_device):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v = _card_flash(case, case[1], cuda_device)
+    kw = dict(window=case[5], chunk=case[6])
+    before = fkernel.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fkernel.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = 2e-2 if case[7] == "bfloat16" else 2e-5
+    assert got.dtype == q.dtype
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=False, window=8), dict(window=8, chunk=16, is_global=True),
+    dict(block_q=16, block_k=16), dict(block_q=32, block_k=64),
+    dict(block_q=64, block_k=32), dict(chunk=32, block_q=48, block_k=24)],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_flash_kernel_options_on_card(kw, cuda_device):
+    q, k, v = _card_flash((1, 128, 4, 2, 32, None, None, "float32"), 7,
+                          cuda_device)
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert (got - want).abs().max().item() < 2e-5
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "stablelm-1.6b",
+                                  "h2o-danube-3-4b"])
+def test_reduced_serve_on_card_matches_cpu(arch, cuda_device):
+    """The serving path on the card (the flash kernel in the prefill)
+    against the same parameters and prompts on the CPU (its plain
+    version), in float32 compute: the prefill logits to 1e-4 and the
+    greedy tokens exactly."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 40)))
+    flash_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    want_logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
+    want_tokens, _, _ = tserve.generate(params, prompts, cfg, 6)
+    params.to(cuda_device)
+    prompts = prompts.to(cuda_device)
+    before = fkernel.LAUNCHES["flash_attention"]
+    tokens, _, _ = tserve.generate(params, prompts, cfg, 6)
+    assert fkernel.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
+    assert (logits.cpu() - want_logits).abs().max().item() < 1e-4
+    assert torch.equal(tokens.cpu(), want_tokens)

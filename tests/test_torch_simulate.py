@@ -69,7 +69,7 @@ def _port_from_reference(fields, scenario):
         rates=np.asarray(states.rates), vclock=np.asarray(states.vclock),
         free_at=np.asarray(states.free_at), seeds=np.asarray(seeds),
         trace_times=np.asarray(traces.times),
-        trace_rates=np.asarray(traces.rates))
+        trace_rates=np.asarray(traces.rates), device="cpu")
 
 
 @pytest.mark.parametrize("case", SLICE_CASES,
