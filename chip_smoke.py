@@ -6,7 +6,8 @@ From the root of a checkout, with one CUDA card visible.  It
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the CUDA kernels with nvcc (one nvcc per source, started
-   together) and prints the ``-Xptxas -v`` register / shared-memory /
+   together: the stream kernels, the SIMT flash kernel and the wgmma
+   flash kernel) and prints the ``-Xptxas -v`` register / shared-memory /
    spill lines;
 3. holds each kernel against its plain PyTorch version on the card:
    the stream kernel in its 1-D form for all eight policies at M in
@@ -15,10 +16,14 @@ From the root of a checkout, with one CUDA card visible.  It
    cross-client merge for all eight policies at M in {37, 130}, with C
    not a multiple of the client tile, whole phantom clients, a padded
    last window and the merge as mean and as raw sum; the legacy
-   single-window `sched_select` wrapper; and the flash attention kernel
-   at the JAX tests' six cases, non-causal, tile sweeps, ``is_global``,
-   gemma-2b's serving shape and danube-like shapes (head dim 120, GQA 4,
-   sliding window, ragged S);
+   single-window `sched_select` wrapper; and flash attention at the JAX
+   tests' six cases, non-causal, tile sweeps, ``is_global``, gemma-2b's
+   serving shape and danube-like shapes (head dim 120, GQA 4, sliding
+   window, ragged S), each f32 case also in bf16, and gemma-2b's heads at
+   S = 2048 and 8192: every case through the kernel `ops` routes it to
+   (bf16 with a head dim that is a multiple of 8: the wgmma kernel; the
+   rest: the SIMT kernel), and every bf16 case through the SIMT kernel
+   too, by its wrapper;
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after: the paper's §4 Monte-Carlo sweep
    (`repro_torch.core.simulate.run_trials`, 100 servers, 2,000 requests,
@@ -29,15 +34,17 @@ From the root of a checkout, with one CUDA card visible.  It
    versions on the card; then the LM serving path
    (`repro_torch.launch.serve.serve`): gemma-2b at full width and depth
    (random weights from seed 0), batch 4, prompt 512, 16 generated
-   tokens, whose prefill must launch the flash kernel once per layer; its
-   prefill logits are computed again with `attention_ref` in place of the
-   kernel, in bf16 and in f32 compute, and held to a tolerance;
+   tokens, whose prefill must launch the wgmma flash kernel once per
+   layer and the SIMT kernel never; its prefill logits are computed
+   again with `attention_ref` in place of the kernel, in bf16 and in f32
+   compute, and held to a tolerance;
 5. times each kernel (CUDA events), its plain version and one whole
    `run_trials` for ``ect``: shared log, and per_client at 200 and at 64
-   clients; the flash kernel, its plain version and PyTorch's
+   clients; both flash kernels, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
-   at the serving shape and at S = 2048 and 8192; and `sched_select` at
-   N = 1024, M = 100;
+   at the serving shape and at S = 2048 and 8192 (each also with the
+   host held off the device's clock, see `queued_ms`); and `sched_select`
+   at N = 1024, M = 100;
 6. prints the ``kernels`` JSON line, then, last, the device JSON line.
 
 Any failure ends the run with a non-zero exit and no result line.  It
@@ -92,8 +99,9 @@ PER_CLIENT_NOTE = "per_client window clamp"
 # flash attention against its plain version: (B, S, H, KV, hd, window,
 # chunk, dtype, extra keywords) — the JAX tests' six cases, non-causal
 # (window ignored), tile sweeps, is_global, gemma-2b's serving shape,
-# danube-like shapes (head dim 120, GQA 4, window, ragged S)
-FLASH_CHECKS = (
+# danube-like shapes (head dim 120, GQA 4, window, ragged S); then the
+# bf16 twin of each f32 case and gemma-2b's heads at S = 2048 and 8192
+_FLASH_BASE = (
     (2, 64, 4, 2, 32, None, None, "float32", {}),
     (1, 128, 4, 1, 64, None, None, "float32", {}),
     (2, 96, 4, 4, 16, 32, None, "float32", {}),
@@ -108,6 +116,11 @@ FLASH_CHECKS = (
     (4, 512, 8, 1, 256, None, None, "bfloat16", {}),
     (1, 1000, 8, 2, 120, 64, None, "float32", {}),
     (2, 1000, 32, 8, 120, 256, None, "bfloat16", {}),
+)
+FLASH_CHECKS = _FLASH_BASE + tuple(
+    (*c[:7], "bfloat16", c[8]) for c in _FLASH_BASE if c[7] == "float32") + (
+    (1, 2048, 8, 1, 256, None, None, "bfloat16", {}),
+    (1, 8192, 8, 1, 256, None, None, "bfloat16", {}),
 )
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the serving path: gemma-2b at full width and depth
@@ -162,6 +175,23 @@ def timed_ms(fn, reps=REPS) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps=REPS) -> float:
+    """Mean ms per call of ``fn`` by CUDA events, with the device held
+    busy (``torch.cuda._sleep``) while the host queues the calls, so the
+    events time the device alone and not the host's launch rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)      # ~25-30 ms at the H100's clocks
     start.record()
     for _ in range(reps):
         fn()
@@ -554,32 +584,47 @@ def flash_operands(b, s, h, kv, hd, dtype, dev, seed):
 
 
 def check_flash(dev):
-    """The flash kernel against its plain version on the card for every
-    case of FLASH_CHECKS; returns the largest absolute difference."""
-    worst = 0.0
+    """The flash kernels against the plain version on the card for every
+    case of FLASH_CHECKS: each case through the kernel `ops` routes it to,
+    and a case routed to the wgmma kernel through the SIMT kernel too;
+    each kernel's launch count must move by one.  Returns the largest
+    absolute difference per route."""
+    worst = {"wgmma": 0.0, "simt": 0.0}
     for i, (b, s, h, kv, hd, win, ck, dtype, extra) in enumerate(
             FLASH_CHECKS):
         q, k, v = flash_operands(b, s, h, kv, hd, dtype, dev, seed=i)
         kw = dict(window=win, chunk=ck, **extra)
-        got = fops.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
         want = fops.flash_attention_plain(q, k, v, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = got.dtype == q.dtype and bool(torch.isfinite(got).all()) \
-            and err <= FLASH_TOL[dtype]
-        print(f"flash B={b} S={s} H={h}/{kv} hd={hd} window={win} "
-              f"chunk={ck} {dtype} {extra or ''}: max abs err {err:.3g} "
-              f"(tolerance {FLASH_TOL[dtype]:g}) -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"flash kernel disagrees with its plain version ({i})")
-        worst = max(worst, err)
+        route = fops._route(q.dtype, hd, q.device.type)
+        runs = [(route, lambda: fops.flash_attention(q, k, v, **kw))]
+        if route == "wgmma":
+            runs.append(("simt", lambda: fops._run(
+                fkernel.flash_attention_call, q, k, v, **kw)))
+        for name, run in runs:
+            key = f"flash_attention_{name}"
+            before = fkernel.LAUNCHES[key]
+            got = run()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = got.dtype == q.dtype and bool(torch.isfinite(got).all()) \
+                and err <= FLASH_TOL[dtype] \
+                and fkernel.LAUNCHES[key] == before + 1
+            print(f"flash {name:>5s} B={b} S={s} H={h}/{kv} hd={hd} "
+                  f"window={win} chunk={ck} {dtype} {extra or ''}: max abs "
+                  f"err {err:.3g} (tolerance {FLASH_TOL[dtype]:g}) -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{key} disagrees with the plain version ({i})")
+            worst[name] = max(worst[name], err)
+        del q, k, v, want
     return worst
 
 
 def zero_counts():
     for k in skernel.LAUNCHES:
         skernel.LAUNCHES[k] = 0
-    fkernel.LAUNCHES["flash_attention"] = 0
+    for k in fkernel.LAUNCHES:
+        fkernel.LAUNCHES[k] = 0
 
 
 def all_counts():
@@ -588,16 +633,17 @@ def all_counts():
 
 def run_serve_path(card):
     """`serve` of gemma-2b at full width, counts zeroed just before and
-    read just after: one flash launch per layer, no other kernel."""
+    read just after: one wgmma flash launch per layer, no other kernel."""
     args = serve.parse_args(SERVE_ARGS)
     zero_counts()
     out = serve.serve(args)
     torch.cuda.synchronize()
     counts = all_counts()
     n_layers = get_config(args.arch, args.reduced).n_layers
-    if counts != dict({k: 0 for k in counts}, flash_attention=n_layers):
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=n_layers):
         fail(f"serve main path launched {counts}, expected "
-             f"{n_layers} flash_attention launches")
+             f"{n_layers} flash_attention_wgmma launches and no other")
     print(f"serve main path: launches {counts}")
     tokens = out["tokens"]
     vocab = get_config(args.arch, args.reduced).padded_vocab
@@ -612,7 +658,7 @@ def run_serve_path(card):
           f"tok/s over {args.batch * (args.gen - 1)} decoded tokens; "
           f"{reqs} tokens in all)")
     print(f"serve tokens: {tokens.tolist()}")
-    return args, out, counts["flash_attention"]
+    return args, out, counts
 
 
 def check_serve_logits(args, tokens):
@@ -731,31 +777,43 @@ def flash_bound(b, s, h, kv, hd, elem_bytes=2):
 
 
 def time_flash(dev, card):
-    """The flash kernel, its plain version and SDPA by CUDA events at the
-    FLASH_TIMED shapes; returns the serving shape's numbers."""
+    """Both flash kernels (the SIMT one through its own wrapper), the plain
+    version and SDPA by CUDA events at the FLASH_TIMED shapes, in turns
+    and in one run; each timed back to back (`timed_ms`, the method of the
+    earlier flash timings) and with the host held off the clock
+    (`queued_ms`).  Returns the serving shape's numbers per kernel,
+    queued."""
     h, kv, hd = 8, 1, 256
     first = None
     for b, s in FLASH_TIMED:
         q, k, v = flash_operands(b, s, h, kv, hd, "bfloat16", dev, seed=s)
-        kernel_ms = timed_ms(lambda: fops.flash_attention(q, k, v))
-        plain_ms = timed_ms(lambda: fops.flash_attention_plain(q, k, v))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        library_ms = timed_ms(sdpa)
-        lib_err = (sdpa().transpose(1, 2).float()
-                   - fops.flash_attention(q, k, v).float()).abs().max().item()
+        calls = {
+            "wgmma": lambda: fops.flash_attention(q, k, v),
+            "simt": lambda: fops._run(fkernel.flash_attention_call, q, k, v),
+            "plain": lambda: fops.flash_attention_plain(q, k, v),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}
+        back = {n: timed_ms(fn) for n, fn in calls.items()}
+        queued = {n: queued_ms(fn) for n, fn in calls.items()}
+        lib_err = (calls["sdpa"]().transpose(1, 2).float()
+                   - calls["wgmma"]().float()).abs().max().item()
         bound_ms, bound_by, nbytes, flops = flash_bound(b, s, h, kv, hd)
         print(f"timing flash_attention B={b} S={s} H={h}/{kv} hd={hd} bf16 "
-              f"causal on {card}:")
-        print(f"  kernel  {kernel_ms:.4f} ms/launch; plain {plain_ms:.3f} ms;"
-              f" sdpa (library) {library_ms:.4f} ms (vs kernel max abs "
-              f"{lib_err:.3g}); bound {bound_ms:.5f} ms ({bound_by}: "
-              f"{nbytes} bytes, {flops} FLOP)")
+              f"causal on {card}, ms per call queued (back to back):")
+        print("  " + "; ".join(f"{n} {queued[n]:.4f} ({back[n]:.4f})"
+                               for n in calls)
+              + f"; sdpa vs wgmma max abs {lib_err:.3g}; bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} FLOP)"
+              f"; wgmma {queued['simt'] / queued['wgmma']:.1f}x faster than "
+              f"simt, {queued['wgmma'] / queued['sdpa']:.2f}x sdpa's time, "
+              f"{flops / queued['wgmma'] / 1e9:.1f} TFLOP/s")
         if first is None:
-            first = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=library_ms)
-        del q, k, v, qt, kt, vt
+            first = {n: dict(ms=queued[n], plain_ms=queued["plain"],
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=queued["sdpa"])
+                     for n in ("wgmma", "simt")}
+        del q, k, v, qt, kt, vt, calls
     return first
 
 
@@ -792,7 +850,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
     warnings.filterwarnings("ignore", message=PER_CLIENT_NOTE)
 
-    sources = (skernel.SOURCE, fkernel.SOURCE)
+    sources = (skernel.SOURCE, fkernel.SOURCE, fkernel.WGMMA_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -803,6 +861,10 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas {src.name}: {line.strip()}")
+    for hd in (64, 128, 192, 256):
+        smem, blocks = fkernel.wgmma_occupancy(hd)
+        print(f"  flash_attn_wgmma.cu at head dim {hd}: {smem} bytes of "
+              f"dynamic shared memory, {blocks} blocks per SM")
 
     # -- kernels against their plain versions ------------------------------
     err_1d = 0.0
@@ -854,7 +916,7 @@ def main() -> None:
 
     # -- flash attention, then the serving path at full width --------------
     err_flash = check_flash(dev)
-    serve_args, serve_out, flash_launches = run_serve_path(card)
+    serve_args, serve_out, serve_counts = run_serve_path(card)
     check_serve_logits(serve_args, serve_out["tokens"])
     profile_serve(serve_args, serve_out["prefill_s"], card)
     t_flash = time_flash(dev, card)
@@ -873,11 +935,13 @@ def main() -> None:
         dict(name="client_merge", route="cuda", source=src,
              replaces=f"{ref}:558", launches=pc_counts["client_merge"],
              max_abs_err=err_merge, library_ms=None, **t_merge),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attn.cu",
-             replaces="src/repro/kernels/flash_attention/kernel.py:33",
-             launches=flash_launches, max_abs_err=err_flash, **t_flash)]}))
+        *(dict(name=f"flash_attention_{r}", route="cuda",
+               source=f"src/repro_torch/kernels/flash_attention/csrc/{f}",
+               replaces="src/repro/kernels/flash_attention/kernel.py:33",
+               launches=serve_counts[f"flash_attention_{r}"],
+               max_abs_err=err_flash[r], **t_flash[r])
+          for r, f in (("simt", "flash_attn.cu"),
+                       ("wgmma", "flash_attn_wgmma.cu")))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,17 @@
 """Build the CUDA sources of this package with ``nvcc`` on first use.
 
-Each kernel directory's ``csrc/*.cu`` file becomes a shared library with a
-plain C interface, loaded with ``ctypes``.  The library lands in
+Each ``csrc/*.cu`` file of a kernel directory becomes a shared library
+with a plain C interface, loaded with ``ctypes``.  The library lands in
 ``src/repro_torch/_build/`` (listed in ``.gitignore``) under a name that
 carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  nvcc's output (the
-``-Xptxas -v`` register, shared-memory and spill lines) is kept beside the
-library as ``<name>.log``.  Building takes seconds; nothing is built when
-the package is imported.  Callers name a source by its path, so every
-kernel directory shares this one helper and one flag set.
+rebuilt and a stale library is never loaded.  The hash covers the one
+file only, so a kernel source stands alone: a local ``#include "..."``
+is refused (a header edited on its own would load a stale library).
+nvcc's output (the ``-Xptxas -v`` register, shared-memory and spill
+lines) is kept beside the library as ``<name>.log``.  Building takes
+seconds; nothing is built when the package is imported.  Callers name a
+source by its path, so every kernel directory shares this one helper and
+one flag set.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,8 +27,9 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 # No fast math, no FMA contraction: the stream kernels are held bit for
-# bit against their plain PyTorch versions (the flash kernel writes its
-# FMAs out as ``fmaf``, which this flag leaves alone).
+# bit against their plain PyTorch versions (the SIMT flash kernel writes
+# its FMAs out as ``fmaf``, which this flag leaves alone, and the wgmma
+# flash kernel's are the tensor cores').
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -41,8 +46,16 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"', re.MULTILINE)
+
+
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
+    text = source.read_bytes()
+    if _LOCAL_INCLUDE.search(text):
+        raise ValueError(f"{source.name} includes a local header; the build "
+                         "hashes the source file alone, so keep each kernel "
+                         "source in one file")
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 

@@ -1,14 +1,15 @@
-"""Dispatch of the flash attention kernel.
+"""Dispatch of the flash attention kernels.
 
 `flash_attention` is the counterpart of the JAX package's
 ``kernels/flash_attention/ops.flash_attention``: ``is_global`` clears the
 window and chunk (llama4's global layers attend plain causal), the tile
-sizes are clamped to the sequence as there, and a CUDA tensor goes
-through the CUDA kernel (which raises if it cannot run — there is no
-fallback) while a CPU tensor goes through the plain version
-`ref.attention_ref`.  `flash_attention_plain` runs the plain version on
-whatever device the tensors lie on: what the kernel is held against on
-the card.
+sizes are clamped to the sequence as there, and `_route` names what runs:
+a CUDA tensor in bfloat16 whose head dim is a multiple of 8 (at most 256)
+goes through the wgmma kernel, any other CUDA tensor through the SIMT
+kernel, and a CPU tensor through the plain version `ref.attention_ref`.
+A kernel that cannot build or launch raises: there is no fallback.
+`flash_attention_plain` runs the plain version on whatever device the
+tensors lie on: what the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -18,24 +19,42 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import (MAX_BLOCK,
-                                                        flash_attention_call)
+from repro_torch.kernels.flash_attention.kernel import (
+    MAX_BLOCK, MAX_HEAD_DIM, flash_attention_call, flash_attention_wgmma_call)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def _plain(q, k, v, *, causal, window, chunk, block_q, block_k):
-    """`attention_ref` under the kernel's signature (tiles do not change
+    """`attention_ref` under the kernels' signature (tiles do not change
     what it computes)."""
     return attention_ref(q, k, v, causal=causal, window=window, chunk=chunk)
 
 
+def _wgmma(q, k, v, *, causal, window, chunk, block_q, block_k):
+    """The wgmma kernel under the kernels' signature: its tiles are fixed
+    (`kernel.WGMMA_TILES`), so ``block_q``/``block_k`` go unused."""
+    return flash_attention_wgmma_call(q, k, v, causal=causal, window=window,
+                                      chunk=chunk)
+
+
+def _route(dtype: torch.dtype, hd: int, device_type: str) -> str:
+    """``"wgmma"``, ``"simt"`` or ``"plain"``: what runs for q of this
+    dtype, head dim and device type."""
+    if device_type == "cuda":
+        if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= MAX_HEAD_DIM:
+            return "wgmma"
+        return "simt"
+    if device_type == "cpu":
+        return "plain"
+    raise ValueError(f"no flash attention implementation for "
+                     f"{device_type} tensors")
+
+
+_ROUTES = {"wgmma": _wgmma, "simt": flash_attention_call, "plain": _plain}
+
+
 def _pick(x: torch.Tensor):
-    """The kernel for a CUDA tensor, the plain version for a CPU one."""
-    if x.device.type == "cuda":
-        return flash_attention_call
-    if x.device.type == "cpu":
-        return _plain
-    raise ValueError(f"no flash attention implementation for {x.device}")
+    return _ROUTES[_route(x.dtype, x.shape[-1], x.device.type)]
 
 
 def _run(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -58,10 +77,11 @@ def _run(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, *args, **kw) -> torch.Tensor:
     """Fused GQA attention. q: (B,S,H,hd); k,v: (B,S,KV,hd), float32 or
     bfloat16 -> (B,S,H,hd) in q's dtype.  Keywords ``causal``,
-    ``window``, ``chunk``, ``is_global`` as the JAX function;
-    ``block_q``/``block_k`` are the kernel's query and key tiles, at most
-    `kernel.MAX_BLOCK` rows after the clamp to the sequence, on any device
-    (the JAX package's TPU default is 128)."""
+    ``window``, ``chunk``, ``is_global`` as the JAX function.
+    ``block_q``/``block_k`` are validated on any device (at most
+    `kernel.MAX_BLOCK` rows after the clamp to the sequence; the JAX
+    package's TPU default is 128) but steer only the SIMT kernel: the
+    wgmma kernel's tiles are fixed at 128 query and 64 key rows."""
     return _run(_pick(q), q, *args, **kw)
 
 

@@ -25,6 +25,7 @@ from repro_torch.core.policies import PolicyConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.sched_select import kernel as tkernel
 from repro_torch.kernels.sched_select import ops as tops
 from repro_torch.launch import serve as tserve
@@ -164,10 +165,31 @@ CARD_FLASH_CASES = FLASH_CASES + [
     (1, 70, 4, 2, 64, 16, None, "bfloat16")]
 
 
+# the wgmma kernel: the bf16 twin of every case above, then gemma-2b's
+# head (hd 256) at S past one query block, ragged and at the timed 2048,
+# and danube's head dim 120 with a window of 64
+WGMMA_CASES = [(*c[:7], "bfloat16") for c in CARD_FLASH_CASES] + [
+    (1, 130, 8, 1, 256, None, None, "bfloat16"),
+    (1, 1000, 8, 1, 256, None, None, "bfloat16"),
+    (1, 2048, 8, 1, 256, None, None, "bfloat16"),
+    (1, 1000, 8, 2, 120, 64, None, "bfloat16")]
+
+
 def _card_flash(case, seed, device):
     b, s, h, kv, hd, _, _, dtype = case
     return [torch.from_numpy(a).to(device=device, dtype=getattr(torch, dtype))
             for a in flash_inputs(b, s, h, kv, hd, seed)]
+
+
+def _routed_launch(q, k, v, route, **kw):
+    """``flash_attention`` on the card, which must launch the kernel of
+    ``route`` once and the other kernel never."""
+    before = dict(fkernel.LAUNCHES)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    key = f"flash_attention_{route}"
+    assert fkernel.LAUNCHES == dict(before, **{key: before[key] + 1})
+    return got
 
 
 @pytest.mark.parametrize("case", CARD_FLASH_CASES,
@@ -176,13 +198,35 @@ def test_flash_kernel_matches_plain_on_card(case, cuda_device):
     assert not torch.backends.cuda.matmul.allow_tf32
     q, k, v = _card_flash(case, case[1], cuda_device)
     kw = dict(window=case[5], chunk=case[6])
-    before = fkernel.LAUNCHES["flash_attention"]
-    got = flash_attention(q, k, v, **kw)
-    torch.cuda.synchronize()
-    assert fkernel.LAUNCHES["flash_attention"] == before + 1
+    route = "wgmma" if case[7] == "bfloat16" else "simt"
+    got = _routed_launch(q, k, v, route, **kw)
     want = flash_attention_plain(q, k, v, **kw)
     tol = 2e-2 if case[7] == "bfloat16" else 2e-5
     assert got.dtype == q.dtype
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_wgmma_kernel_matches_plain_on_card(case, cuda_device):
+    q, k, v = _card_flash(case, 100 + case[1], cuda_device)
+    kw = dict(window=case[5], chunk=case[6])
+    got = _routed_launch(q, k, v, "wgmma", **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("dtype,hd", [("float32", 256), ("float32", 64),
+                                      ("bfloat16", 250), ("bfloat16", 20)])
+def test_flash_simt_route_on_card(dtype, hd, cuda_device):
+    """f32 operands and head dims that are not a multiple of 8 take the
+    SIMT kernel."""
+    case = (1, 130, 4, 2, hd, 64, None, dtype)
+    q, k, v = _card_flash(case, 9, cuda_device)
+    got = _routed_launch(q, k, v, "simt", window=64)
+    want = flash_attention_plain(q, k, v, window=64)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
     assert (got.float() - want.float()).abs().max().item() < tol
 
 
@@ -216,9 +260,49 @@ def test_reduced_serve_on_card_matches_cpu(arch, cuda_device):
     want_tokens, _, _ = tserve.generate(params, prompts, cfg, 6)
     params.to(cuda_device)
     prompts = prompts.to(cuda_device)
-    before = fkernel.LAUNCHES["flash_attention"]
+    before = dict(fkernel.LAUNCHES)
     tokens, _, _ = tserve.generate(params, prompts, cfg, 6)
-    assert fkernel.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    # float32 operands: the SIMT kernel, once per layer
+    assert fkernel.LAUNCHES == dict(
+        before, flash_attention_simt=before["flash_attention_simt"]
+        + cfg.n_layers)
     logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
     assert (logits.cpu() - want_logits).abs().max().item() < 1e-4
     assert torch.equal(tokens.cpu(), want_tokens)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "stablelm-1.6b",
+                                  "h2o-danube-3-4b"])
+def test_reduced_bf16_prefill_on_card_takes_wgmma(arch, cuda_device,
+                                                  monkeypatch):
+    """bf16 compute on the card: the prefill's attention goes through the
+    wgmma kernel, once per layer, and its logits agree with the same
+    forward pass with `attention_ref` in the kernel's place to 0.02 of
+    the largest |logit| (chip_smoke's serve check)."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              use_pallas_attn=True)
+    params = T.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, device=cuda_device)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 200))).to(cuda_device)
+    before = dict(fkernel.LAUNCHES)
+    got = T.forward_train(params, {"tokens": prompts}, cfg).float()
+    torch.cuda.synchronize()
+    assert fkernel.LAUNCHES == dict(
+        before, flash_attention_wgmma=before["flash_attention_wgmma"]
+        + cfg.n_layers)
+    monkeypatch.setattr(fops, "flash_attention", flash_attention_plain)
+    want = T.forward_train(params, {"tokens": prompts}, cfg).float()
+    assert (got - want).abs().max().item() <= 0.02 * want.abs().max().item()
+
+
+def test_flash_wgmma_refuses_misaligned_operands(cuda_device):
+    """A TMA tensor map needs a 16-byte-aligned base: the wrapper raises
+    for a contiguous view that starts off one."""
+    q, k, v = _card_flash((1, 64, 2, 1, 32, None, None, "bfloat16"), 3,
+                          cuda_device)
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(shifted, k, v)
