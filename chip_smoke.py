@@ -9,21 +9,25 @@ From the root of a checkout, with one CUDA card visible.  It
    together: the stream kernels, the SIMT flash kernel and the wgmma
    flash kernel) and prints the ``-Xptxas -v`` register / shared-memory /
    spill lines;
-3. holds each kernel against its plain PyTorch version on the card:
-   the stream kernel in its 1-D form for all eight policies at M in
-   {37, 130, 300}, with a padded final window and T not a multiple of
-   the warps per block; its 2-D (trials x clients) form and the
-   cross-client merge for all eight policies at M in {37, 130}, with C
-   not a multiple of the client tile, whole phantom clients, a padded
-   last window and the merge as mean and as raw sum; the legacy
-   single-window `sched_select` wrapper; and flash attention at the JAX
-   tests' six cases, non-causal, tile sweeps, ``is_global``, gemma-2b's
-   serving shape and danube-like shapes (head dim 120, GQA 4, sliding
-   window, ragged S), each f32 case also in bf16, and gemma-2b's heads at
-   S = 2048 and 8192: every case through the kernel `ops` routes it to
-   (bf16 with a head dim that is a multiple of 8: the wgmma kernel; the
-   rest: the SIMT kernel), and every bf16 case through the SIMT kernel
-   too, by its wrapper;
+3. holds each kernel against its plain PyTorch version on the card: the
+   stream kernel in its 1-D form for all eight policies at M in
+   {37, 130, 300, 1000}, with a padded final window, T not a multiple of
+   the warps per block and T = 140 above the SM count, the window and
+   M_pad at their 1024 caps, a table of -0.0/+0.0 loads with tied
+   scores, one whose est row is not ewma's function and one where a
+   padding lane wins ect's argmin; its 2-D (trials x clients) form and
+   the cross-client merge for all eight policies at M in {37, 130},
+   with C not a multiple of the client tile, whole phantom clients, a
+   padded last window, N = 16/17 and 32/33 (each form's p99 edge), the
+   window and M_pad at their 1024 caps, and the merge as mean and as raw
+   sum; the legacy single-window `sched_select` wrapper; and flash
+   attention at the JAX tests' six cases, non-causal, tile sweeps,
+   ``is_global``, gemma-2b's serving shape and danube-like shapes (head
+   dim 120, GQA 4, sliding window, ragged S), each f32 case also in
+   bf16, and gemma-2b's heads at S = 2048 and 8192: every case through
+   the kernel `ops` routes it to (bf16 with a head dim that is a
+   multiple of 8: the wgmma kernel; the rest: the SIMT kernel), and
+   every bf16 case through the SIMT kernel too, by its wrapper;
 4. drives the main paths, each with the launch counts set to 0 just
    before and read just after: the paper's §4 Monte-Carlo sweep
    (`repro_torch.core.simulate.run_trials`, 100 servers, 2,000 requests,
@@ -38,13 +42,15 @@ From the root of a checkout, with one CUDA card visible.  It
    layer and the SIMT kernel never; its prefill logits are computed
    again with `attention_ref` in place of the kernel, in bf16 and in f32
    compute, and held to a tolerance;
-5. times each kernel (CUDA events), its plain version and one whole
-   `run_trials` for ``ect``: shared log, and per_client at 200 and at 64
-   clients; both flash kernels, the plain version and PyTorch's
+5. times the stream kernel (CUDA events, queued and back to back) for each
+   of the six engine policies at its main-path operands, with ns per
+   request per stream per wave; the merge, the plain versions and one whole `run_trials` for
+   ``ect``: shared log, and per_client at 200 and at 64 clients; both
+   flash kernels, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    at the serving shape and at S = 2048 and 8192 (each also with the
-   host held off the device's clock, see `queued_ms`); and `sched_select`
-   at N = 1024, M = 100;
+   host held off the device's clock, see `queued_ms`); and
+   `sched_select` at N = 1024, M = 100;
 6. prints the ``kernels`` JSON line, then, last, the device JSON line.
 
 Any failure ends the run with a non-zero exit and no result line.  It
@@ -62,6 +68,8 @@ from pathlib import Path
 from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the tests' shared helpers (torch and numpy only): the table variants
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -79,6 +87,7 @@ from repro_torch.kernels.sched_select import ops as sops  # noqa: E402
 from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from torch_parity import table_variant  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -86,11 +95,23 @@ F32_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12
 
 BODY_POLICIES = tuple(skernel.POLICY_CODES)
-# (T, M, W, window): T below / not a multiple of the 4 warps per block
-CHECK_SHAPES = ((5, 37, 4, 32), (7, 130, 3, 50), (6, 300, 3, 40))
+# (T, M, W, window, table): a few streams; T above the 132 SMs at one warp per block; the window and M_pad
+# at their 1024 caps; initial tables (`initial_tables`) of -0.0 and +0.0
+# loads with exactly tied scores, with an est row ewma does not give, and
+# where a padding lane wins ect's argmin
+CHECK_SHAPES = ((5, 37, 4, 32, "init"), (7, 130, 3, 50, "init"),
+                (6, 300, 3, 40, "init"), (140, 37, 2, 16, "init"),
+                (2, 1000, 1, 1024, "init"), (4, 37, 3, 16, "signed_zeros"),
+                (4, 37, 3, 16, "warm"), (3, 37, 2, 16, "pad_wins"))
 # (T, C, M, W, window, client_tile, phantom clients): C not a multiple of
-# the client tile, whole phantom clients
-GRID_SHAPES = ((3, 7, 37, 3, 16, 2, 2), (5, 40, 130, 2, 10, 32, 3))
+# the client tile, whole phantom clients; N = 16 and 17 on either side of
+# the 2-D form's p99 held in registers (N <= its 16 lanes per stream);
+# N = 32 and 33, the 1-D form's edge; the window and M_pad at their 1024
+# caps, two streams to a warp
+GRID_SHAPES = ((3, 7, 37, 3, 16, 2, 2), (5, 40, 130, 2, 10, 32, 3),
+               (2, 9, 37, 1, 16, 4, 1), (2, 9, 37, 1, 17, 4, 1),
+               (2, 9, 37, 2, 16, 4, 1), (2, 9, 37, 3, 11, 4, 1),
+               (2, 3, 1000, 1, 1024, 2, 1))
 KW = dict(threshold=2.0, lam=50.0, window_dt=0.02, observe=True,
           renorm=True)
 REPS = 20
@@ -200,6 +221,16 @@ def queued_ms(fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def steady_ms(timer, fn, span_ms=25.0, runs=5):
+    """(median, least, largest) of ``runs`` timings of ``fn`` by ``timer``
+    (`timed_ms` or `queued_ms`), each over enough calls to span about
+    ``span_ms`` of device time: a short kernel's single reading moves with
+    the card's clocks from one moment to the next."""
+    reps = max(REPS, int(span_ms / max(timer(fn), 1e-3)))
+    times = sorted(timer(fn, reps=reps) for _ in range(runs))
+    return times[len(times) // 2], times[0], times[-1]
+
+
 def once_ms(fn) -> float:
     """ms of one call of ``fn`` by CUDA events (the slow plain versions)."""
     torch.cuda.synchronize()
@@ -221,19 +252,28 @@ def bound(bytes_moved: float, ops: float):
 # -- kernels against their plain versions ------------------------------------
 
 
-def check_case(t, m, n_win, win, policy, seed, dev):
+def initial_tables(kind, t, m, dev):
+    """(T, 4, M) initial tables: "init" is `policy_core.init_table`; the
+    other kinds are the tests' `table_variant` of it."""
+    tables = policy_core.init_table(m, batch=t, device="cpu").numpy()
+    if kind != "init":
+        tables = table_variant(tables, kind, m)
+    return torch.from_numpy(tables).to(dev)
+
+
+def check_case(t, m, n_win, win, table, policy, seed, dev):
     """1-D kernel against plain version on the card for one case; returns
     the largest absolute difference over all outputs."""
     rng = np.random.default_rng(seed)
     n = n_win * win
     valid = rng.random((t, n)) > 0.2
     valid[:, n - win // 3:] = False                # padded final window
+    tables = initial_tables(table, t, m, dev)
     args = (torch.from_numpy(rng.integers(0, 8 * m, (t, n)).astype(
                 np.int32)).to(dev),
             torch.from_numpy(rng.uniform(1.0, 20.0, (t, n)).astype(
                 np.float32)).to(dev),
-            torch.from_numpy(valid).to(dev),
-            policy_core.init_table(m, batch=t, device=dev),
+            torch.from_numpy(valid).to(dev), tables,
             torch.from_numpy(rng.integers(0, 2 ** 32, (t,))).to(dev),
             torch.from_numpy(rng.uniform(50.0, 300.0, (t, n_win, m)).astype(
                 np.float32)).to(dev))
@@ -244,7 +284,7 @@ def check_case(t, m, n_win, win, policy, seed, dev):
     torch.cuda.synchronize()
     exact, d_probs, rel = stream_fields_ok(got, want)
     ok = exact and d_probs <= 1e-6 and rel <= 1e-6
-    print(f"check {policy:>10s} T={t} M={m} W={n_win} win={win}: "
+    print(f"check {policy:>10s} T={t} M={m} W={n_win} win={win} {table}: "
           f"contract fields {'bit-exact' if exact else 'DIFFER'}, "
           f"probs err {d_probs:.3g}, ewma/est rel err {rel:.3g} "
           f"-> {'ok' if ok else 'FAIL'}")
@@ -458,17 +498,55 @@ def stage_split(cfg, log, pol, dev):
     return wall_ms, [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
 
 
-def time_shared_log(cfg, log, pol, dev, card):
+def main_path_operands(cfg, log, pol, dev, hook):
+    """The stream kernel's operands and keywords in one main-path run of
+    ``pol``, padded as the kernel takes them: the calls of `_sched_trials`
+    to its ``hook`` (``stream_batch`` or ``stream_grid``) are recorded."""
     captured = {}
+    fn = {"stream_batch": sops.sched_stream_batch,
+          "stream_grid": sops.sched_stream_grid}[hook]
     init, mask, works, states, traces, seeds = prep(cfg, log, dev)
     simulate._sched_trials(cfg, pol, log, works, states, seeds, traces,
-                           stream_batch=recording(sops.sched_stream_batch,
-                                                  captured))
-    kargs = sops.pad_operands(*captured["args"])
-    kkw = captured["kw"]
-    kernel_ms = timed_ms(lambda: skernel.sched_stream_call(*kargs, **kkw))
+                           **{hook: recording(fn, captured)})
+    return sops.pad_operands(*captured["args"]), dict(captured["kw"])
+
+
+def time_stream_policies(form, launch, operands, card):
+    """The stream kernel in ``form`` (a `skernel.LAUNCHES` key) for every
+    engine policy at its main-path operands, by CUDA events: ms per
+    launch queued (the device alone, `queued_ms`) and back to back (the
+    method of the earlier stream kernel timings), each the median of
+    `steady_ms`, and ns per request per stream per wave from the queued
+    time (the streams of one wave run side by side, each its own chain of
+    N requests).  Returns {policy: (queued ms, back-to-back ms)}."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    times = {}
+    print(f"  stream kernel by policy on {card}, ms per launch queued "
+          "(back to back), median of 5 [range]:")
+    for p, (kargs, kkw) in operands.items():
+        n = kargs[0].shape[-1]
+        n_streams = kargs[0].numel() // n
+        blocks_sm, spb, smem = skernel.stream_occupancy(
+            form, p, kkw["n_servers"], kargs[3].shape[-1],
+            kkw["window_size"])
+        waves = -(-(-(-n_streams // spb)) // (blocks_sm * n_sm))
+        q = steady_ms(queued_ms, lambda: launch(*kargs, **kkw))
+        b = steady_ms(timed_ms, lambda: launch(*kargs, **kkw))
+        times[p] = (q[0], b[0])
+        print(f"    {p:>10s} {q[0]:.4f} [{q[1]:.4f}-{q[2]:.4f}] "
+              f"({b[0]:.4f} [{b[1]:.4f}-{b[2]:.4f}]) ms, "
+              f"{q[0] * 1e6 / waves / n:.1f} ns per request per "
+              f"stream per wave ({waves} wave(s); {blocks_sm} blocks of "
+              f"{spb} streams per SM, {smem} bytes of shared memory a block)")
+    return times
+
+
+def time_shared_log(cfg, log, pols, dev, card):
+    operands = {p: main_path_operands(cfg, log, pol, dev, "stream_batch")
+                for p, pol in pols.items()}
+    kargs, kkw = operands["ect"]
     plain_ms = once_ms(lambda: sref.sched_stream_batch_ref(*kargs, **kkw))
-    wall_ms, stage_ms = stage_split(cfg, log, pol, dev)
+    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"], dev)
 
     # least time for the same work, over the n_servers real lanes (the
     # padding to 128 lanes is the kernel's choice, not the function's):
@@ -477,7 +555,11 @@ def time_shared_log(cfg, log, pol, dev, card):
     # window loads, metrics — and the float32 operations of ect (per
     # request: score add+div, argmin compare, probs add, est max+select on
     # every lane; per window: renorm and drain; per stream: 48 bisection
-    # passes over N latencies)
+    # passes over N latencies).  This counts the function's work, not the
+    # kernel's: the kernel skips the per-request est rewrite (it keeps the
+    # max incrementally and derives est where a score reads it), but the
+    # function defines est on every lane after every request, so the
+    # count stays.
     t_, n_ = kargs[0].shape
     m_, n_win = cfg.n_servers, kargs[5].shape[1]
     bytes_moved = 4 * (3 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_ + t_
@@ -486,10 +568,13 @@ def time_shared_log(cfg, log, pol, dev, card):
     ops = t_ * (n_ * 6 * m_ + n_win * 5 * m_ + 48 * n_ * 2)
     bound_ms, bound_by = bound(bytes_moved, ops)
     reqs = cfg.n_trials * cfg.n_requests
-    print(f"timing shared_log ect, T={t_} N={n_} M={m_} on {card}:")
-    print(f"  kernel  {kernel_ms:.4f} ms/launch ({reqs / kernel_ms * 1e3:.0f}"
-          " requests/s)")
-    print(f"  plain   {plain_ms:.2f} ms")
+    print(f"timing shared_log, T={t_} N={n_} M={m_} on {card}:")
+    times = time_stream_policies("sched_stream", skernel.sched_stream_call,
+                                 operands, card)
+    kernel_ms = times["ect"][0]
+    print(f"  ect kernel  {kernel_ms:.4f} ms/launch queued "
+          f"({reqs / kernel_ms * 1e3:.0f} requests/s)")
+    print(f"  ect plain   {plain_ms:.2f} ms")
     print(f"  run_trials wall {wall_ms:.2f} ms "
           f"({reqs / wall_ms * 1e3:.0f} requests/s)")
     print(f"  stages  prep {stage_ms[0]:.2f} ms, sched {stage_ms[1]:.2f} ms"
@@ -502,37 +587,36 @@ def time_shared_log(cfg, log, pol, dev, card):
                 bound_by=bound_by)
 
 
-def time_per_client(cfg, log, pol, dev, card):
-    """Each 2-D kernel by CUDA events at the main path's operands, its
-    plain version, one whole run_trials and the stage split."""
-    captured = {}
-    init, mask, works, states, traces, seeds = prep(cfg, log, dev)
-    simulate._sched_trials(cfg, pol, log, works, states, seeds, traces,
-                           stream_grid=recording(sops.sched_stream_grid,
-                                                 captured))
-    kargs = sops.pad_operands(*captured["args"])
-    kkw = dict(captured["kw"])
+def time_per_client(cfg, log, pols, dev, card):
+    """The 2-D stream kernel for every engine policy and the merge by
+    CUDA events at the main path's operands, their plain versions (ect),
+    one whole run_trials and the stage split."""
+    operands, tiles = {}, {}
+    for p, pol in pols.items():
+        kargs, kkw = main_path_operands(cfg, log, pol, dev, "stream_grid")
+        tiles[p] = kkw.pop("client_tile")
+        operands[p] = kargs, kkw
+    kargs, kkw = operands["ect"]
     merge_kw = dict(client_tile=policy_core.resolve_client_tile(
-        kargs[0].shape[1], kkw.pop("client_tile")), merge_mean=True)
+        kargs[0].shape[1], tiles["ect"]), merge_mean=True)
     streams = skernel.sched_stream_grid_streams(*kargs, **kkw)
     _, lats, _, wloads, metrics = streams
     valid = kargs[2]
-    streams_ms = timed_ms(
-        lambda: skernel.sched_stream_grid_streams(*kargs, **kkw))
     merge_ms = timed_ms(lambda: skernel.client_merge_call(
         metrics, wloads, lats, valid, **merge_kw))
     streams_plain_ms = once_ms(
         lambda: sref.sched_stream_grid_streams_ref(*kargs, **kkw))
     merge_plain_ms = once_ms(lambda: sref.client_merge_ref(
         metrics, wloads, lats, valid, **merge_kw))
-    wall_ms, stage_ms = stage_split(cfg, log, pol, dev)
+    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"], dev)
 
     # least time for the same work, over the real servers and the real
     # clients (those with a valid step; padding lanes and phantom clients
     # are not the function's work).  Stream kernel: per real stream, its
     # request blocks, table in and out, seeds, choices, latencies, window
     # loads and metric row, plus each trial's rate rows once; ect's f32
-    # operations as in the shared-log bound.  Merge: per real client, its
+    # operations as in the shared-log bound (the function's work, not
+    # the kernel's).  Merge: per real client, its
     # window loads, metric row, latencies and validity read and the
     # masked latency block written, plus per trial the merged loads and
     # row; operations: one add per window-load element, and the 48
@@ -550,13 +634,17 @@ def time_per_client(cfg, log, pol, dev, card):
     m_ops = real * (n_win * m_ + 48 * n_ * 2)
     s_bound, s_by = bound(s_bytes, s_ops)
     m_bound, m_by = bound(m_bytes, m_ops)
-    kernels_ms = streams_ms + merge_ms
-    print(f"timing per_client ect, T={t_} C={c_} ({real // t_} real per "
+    print(f"timing per_client, T={t_} C={c_} ({real // t_} real per "
           f"trial) N={n_} M={m_} on {card}:")
-    print(f"  stream kernel (2-D)  {streams_ms:.4f} ms/launch, plain "
-          f"{streams_plain_ms:.2f} ms, bound {s_bound:.5f} ms ({s_by}: "
+    times = time_stream_policies("sched_stream_grid",
+                                 skernel.sched_stream_grid_streams,
+                                 operands, card)
+    streams_ms = times["ect"][0]
+    kernels_ms = streams_ms + merge_ms
+    print(f"  ect stream kernel (2-D)  {streams_ms:.4f} ms/launch queued, "
+          f"plain {streams_plain_ms:.2f} ms, bound {s_bound:.5f} ms ({s_by}: "
           f"{s_bytes} bytes, {s_ops} f32 ops)")
-    print(f"  client_merge         {merge_ms:.4f} ms/launch, plain "
+    print(f"  ect client_merge         {merge_ms:.4f} ms/launch, plain "
           f"{merge_plain_ms:.2f} ms, bound {m_bound:.5f} ms ({m_by}: "
           f"{m_bytes} bytes, {m_ops} f32 ops)")
     reqs = cfg.n_trials * cfg.n_requests
@@ -570,7 +658,6 @@ def time_per_client(cfg, log, pol, dev, card):
                  bound_by=s_by),
             dict(ms=merge_ms, plain_ms=merge_plain_ms, bound_ms=m_bound,
                  bound_by=m_by))
-
 
 
 # -- flash attention and the serving path --------------------------------------
@@ -868,10 +955,10 @@ def main() -> None:
 
     # -- kernels against their plain versions ------------------------------
     err_1d = 0.0
-    for i, (t, m, n_win, win) in enumerate(CHECK_SHAPES):
+    for i, shape in enumerate(CHECK_SHAPES):
         for j, policy in enumerate(BODY_POLICIES):
-            err_1d = max(err_1d, check_case(t, m, n_win, win, policy,
-                                            100 * i + j, dev))
+            err_1d = max(err_1d, check_case(*shape, policy, 100 * i + j,
+                                            dev))
     err_grid = err_merge = 0.0
     for i, shape in enumerate(GRID_SHAPES):
         for j, policy in enumerate(BODY_POLICIES):
@@ -904,15 +991,14 @@ def main() -> None:
     err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
     del results
 
-    # -- timing, ect ---------------------------------------------------------
-    t_1d = time_shared_log(cfg, log, pols["ect"], dev, card)
-    t_grid, t_merge = time_per_client(pc_cfg, pc_log, pols["ect"], dev, card)
+    # -- timing: the stream kernel per policy, the rest for ect -----------
+    t_1d = time_shared_log(cfg, log, pols, dev, card)
+    t_grid, t_merge = time_per_client(pc_cfg, pc_log, pols, dev, card)
     # the JAX benchmark's own short-stream instance: 64 clients of 32
     # requests (benchmarks/sched_perf.py, per_client_phase_breakdown)
     c64 = simulate.SimConfig(client_model="per_client", n_clients=64,
                              scenario=simulate.ScenarioConfig("transient"))
-    time_per_client(c64, simulate.default_log_cfg(c64), pols["ect"], dev,
-                    card)
+    time_per_client(c64, simulate.default_log_cfg(c64), pols, dev, card)
 
     # -- flash attention, then the serving path at full width --------------
     err_flash = check_flash(dev)

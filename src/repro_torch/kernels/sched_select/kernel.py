@@ -3,8 +3,8 @@
 `sched_stream_call` is the counterpart of the JAX package's
 ``kernels/sched_select/kernel.py::sched_stream_call``: T independent
 windowed request streams scheduled in one launch of
-``csrc/sched_stream.cu`` (one warp per stream, the stream's ``(4, M_pad)``
-log in shared memory).  `sched_stream_grid_call` is the counterpart of
+``csrc/sched_stream.cu`` (a warp per stream, or half of one in the 2-D
+form, the stream's ``(4, M_pad)`` log in shared memory).  `sched_stream_grid_call` is the counterpart of
 ``sched_stream_grid_call``: the same kernel over the T·C streams of the
 per_client model, then the ``client_merge`` kernel for the per-trial
 cross-client merge.  `sched_select_call` is the legacy single-window
@@ -30,7 +30,16 @@ POLICY_CODES = {"minload": 0, "two_random": 1, "ect": 2, "trh": 3, "rr": 4,
                 "two_choice": 5, "mlml": 6, "nltr": 7}
 MAX_WINDOW = 1024
 MAX_M_PAD = 1024
-WARPS_PER_BLOCK = 4     # launch shape only: streams are independent
+# Warps per block of the stream kernel, by form: a launch shape only,
+# since streams are independent.  Measured on the H100 (PERF.md, §6):
+# the 1-D form's T=100 latency-bound streams read the same for ect at one
+# and four to a block and rr, the shortest chain, ran faster at one, each
+# stream then alone on an SM; the 2-D form reads level at four and eight.
+WARPS_PER_BLOCK = {"sched_stream": 1, "sched_stream_grid": 4}
+# Lanes per stream, by form: the 1-D form's long streams take a whole warp
+# each; the 2-D form's short ones share a warp two to one, 16 lanes each,
+# so the per-request scalar work every lane repeats serves two streams.
+LANES_PER_STREAM = {"sched_stream": 32, "sched_stream_grid": 16}
 
 # Launches in this process, by kernel form (reset by callers that count):
 # the stream kernel over trials (1-D) or over trials x clients (2-D), and
@@ -46,8 +55,11 @@ def _library():
         lib = _build.load(SOURCE)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sched_stream_launch.argtypes = (
-            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 7 + [ptr])
+            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 8 + [ptr])
         lib.sched_stream_launch.restype = ctypes.c_int
+        lib.sched_stream_occupancy.argtypes = (
+            [i32] * 6 + [ctypes.POINTER(i32)] * 3)
+        lib.sched_stream_occupancy.restype = ctypes.c_int
         lib.client_merge_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
         lib.client_merge_launch.restype = ctypes.c_int
         lib.sched_stream_error_string.argtypes = [ctypes.c_int]
@@ -83,12 +95,13 @@ def _raise_on(code: int, what: str) -> None:
 
 
 def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
-                    lead, n_servers, window_size, threshold, lam, alpha,
+                    form, lead, n_servers, window_size, threshold, lam, alpha,
                     window_dt, policy, observe, renorm, nltr_n=2,
                     probe_choices=2):
     """Check the operands and launch the stream kernel over the streams of
-    the leading shape ``lead`` ((T,) or (T, C)); win_rates carry the
-    trial axis only.  Returns the five per-stream outputs."""
+    the leading shape ``lead`` ((T,) or (T, C)), with the launch shape of
+    ``form`` (a `LAUNCHES` key); win_rates carry the trial axis only.
+    Returns the five per-stream outputs."""
     if policy not in POLICY_CODES:
         raise ValueError(f"policy must be one of {tuple(POLICY_CODES)}")
     n = object_ids.shape[-1]
@@ -135,7 +148,8 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
             POLICY_CODES[policy], float(threshold), float(lam), float(alpha),
             float(1 - alpha), float(window_dt), int(bool(window_dt)),
             int(observe), int(renorm), int(nltr_n), int(probe_choices),
-            n_streams // lead[0], WARPS_PER_BLOCK, stream)
+            n_streams // lead[0], WARPS_PER_BLOCK[form],
+            LANES_PER_STREAM[form], stream)
     _raise_on(code, "sched_stream")
     return choices, lats, ftab, wloads, metrics
 
@@ -157,10 +171,11 @@ def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
     (T, MET_PAD) float32 in `policy_core.MET_*` lane order)."""
     out = _launch_streams(
         object_ids, lengths, valid, tables, seeds, win_rates,
-        lead=tuple(object_ids.shape[:1]), n_servers=n_servers,
-        window_size=window_size, threshold=threshold, lam=lam, alpha=alpha,
-        window_dt=window_dt, policy=policy, observe=observe, renorm=renorm,
-        nltr_n=nltr_n, probe_choices=probe_choices)
+        form="sched_stream", lead=tuple(object_ids.shape[:1]),
+        n_servers=n_servers, window_size=window_size, threshold=threshold,
+        lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
+        observe=observe, renorm=renorm, nltr_n=nltr_n,
+        probe_choices=probe_choices)
     LAUNCHES["sched_stream"] += 1
     return out
 
@@ -175,9 +190,24 @@ def sched_stream_grid_streams(object_ids: torch.Tensor,
     (T, C), win_rates (T, W, M_pad); keywords as `sched_stream_call`.
     Returns the five per-stream outputs with leading (T, C)."""
     out = _launch_streams(object_ids, lengths, valid, tables, seeds,
-                          win_rates, lead=tuple(object_ids.shape[:2]), **kw)
+                          win_rates, form="sched_stream_grid",
+                          lead=tuple(object_ids.shape[:2]), **kw)
     LAUNCHES["sched_stream_grid"] += 1
     return out
+
+
+def stream_occupancy(form: str, policy: str, n_servers: int, m_pad: int,
+                     window_size: int) -> tuple:
+    """(blocks per SM, streams per block, dynamic shared memory bytes) of
+    the stream kernel's launch in ``form`` for this policy and shape, as
+    the CUDA runtime reports them for the current card."""
+    i32 = ctypes.c_int
+    blocks, streams, smem = i32(), i32(), i32()
+    _raise_on(_library().sched_stream_occupancy(
+        POLICY_CODES[policy], n_servers, m_pad, window_size,
+        WARPS_PER_BLOCK[form], LANES_PER_STREAM[form], ctypes.byref(blocks),
+        ctypes.byref(streams), ctypes.byref(smem)), "sched_stream occupancy")
+    return blocks.value, streams.value, smem.value
 
 
 def client_merge_call(metrics: torch.Tensor, wloads: torch.Tensor,

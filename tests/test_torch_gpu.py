@@ -33,7 +33,7 @@ from repro_torch.models import transformer as T
 from torch_flash_cases import DANUBE_CASE, FLASH_CASES, flash_inputs
 from torch_parity import (BATCH_CASES, GRID_CASES, KW, assert_grid_outputs,
                           assert_stream_outputs, batch_case, grid_case,
-                          port_batch)
+                          port_batch, table_variant)
 
 pytestmark = pytest.mark.gpu
 
@@ -45,19 +45,55 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _check_stream_on_card(arrays, device, ctx, **kw):
+    """One launch of the 1-D kernel against the plain version on the
+    card, on the same operands."""
+    before = tkernel.LAUNCHES["sched_stream"]
+    got = port_batch(arrays, device, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["sched_stream"] == before + 1
+    want = port_batch(arrays, device, fn=tops.sched_stream_batch_plain, **kw)
+    assert_stream_outputs(got, want, kw["window_size"], ctx)
+
+
 @pytest.mark.parametrize("case", enumerate(BATCH_CASES),
                          ids=lambda c: "-".join(map(str, c[1])))
 def test_cuda_kernel_matches_plain_on_card(case, cuda_device):
     idx, (t, m, n_win, win, policy) = case
     arrays = batch_case(t, m, n_win, win, seed=1000 + idx)
-    kw = dict(KW, n_servers=m, window_size=win, policy=policy)
-    before = tkernel.LAUNCHES["sched_stream"]
-    got = port_batch(arrays, cuda_device, **kw)
-    torch.cuda.synchronize()
-    assert tkernel.LAUNCHES["sched_stream"] == before + 1
-    want = port_batch(arrays, cuda_device, fn=tops.sched_stream_batch_plain,
-                      **kw)
-    assert_stream_outputs(got, want, win, f"cuda {policy} {case[1]}")
+    _check_stream_on_card(arrays, cuda_device, f"cuda {policy} {case[1]}",
+                          **dict(KW, n_servers=m, window_size=win,
+                                 policy=policy))
+
+
+# the stream kernel's edges (T, M, W, window): T above the 132 SMs (one
+# warp per block in the 1-D form), the window and M_pad at their 1024 caps
+EDGE_CASES = [(140, 37, 2, 16), (2, 1000, 1, 1024)]
+
+
+@pytest.mark.parametrize("policy", tops.POLICIES)
+@pytest.mark.parametrize("case", EDGE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_kernel_edges_match_plain_on_card(case, policy, cuda_device):
+    t, m, n_win, win = case
+    arrays = batch_case(t, m, n_win, win, seed=2000 + t)
+    _check_stream_on_card(arrays, cuda_device, f"cuda edge {policy} {case}",
+                          **dict(KW, n_servers=m, window_size=win,
+                                 policy=policy))
+
+
+@pytest.mark.parametrize("policy", tops.POLICIES)
+@pytest.mark.parametrize("table", ["signed_zeros", "warm", "pad_wins"])
+def test_cuda_kernel_initial_tables_on_card(table, policy, cuda_device):
+    """Loads of -0.0 and +0.0 with exactly tied scores (the argmin's key
+    and tie break), an est row ewma does not give (the first request
+    reads the table's row), and a padding lane winning ect's argmin."""
+    t, m, n_win, win = 4, 37, 3, 16
+    arrays = list(batch_case(t, m, n_win, win, seed=3000))
+    arrays[3] = table_variant(arrays[3], table, m)
+    _check_stream_on_card(arrays, cuda_device, f"cuda {table} {policy}",
+                          **dict(KW, n_servers=m, window_size=win,
+                                 policy=policy))
 
 
 @pytest.mark.parametrize("policy", ["ect", "mlml", "nltr", "trh", "rr",
@@ -88,8 +124,19 @@ def test_run_trials_on_card_matches_plain(policy, cuda_device):
                                       err_msg=f"{policy}/{f}")
 
 
+# 2-D edges: N = 16 and 17 requests per stream, on either side of the
+# 2-D form's p99 held one latency per lane in registers (N <= 16 lanes per
+# stream); N = 32 and 33, the same edge for the 1-D form's 32 lanes; the
+# window and M_pad at their 1024 caps, two streams to a warp
+GRID_EDGE_CASES = [(2, 9, 37, 1, 16, 4, True, 1),
+                   (2, 9, 37, 1, 17, 4, True, 1),
+                   (2, 9, 37, 2, 16, 4, True, 1),
+                   (2, 9, 37, 3, 11, 4, True, 1),
+                   (2, 3, 1000, 1, 1024, 2, True, 1)]
+
+
 @pytest.mark.parametrize("policy", tops.POLICIES)
-@pytest.mark.parametrize("case", enumerate(GRID_CASES),
+@pytest.mark.parametrize("case", enumerate(GRID_CASES + GRID_EDGE_CASES),
                          ids=lambda c: "-".join(map(str, c[1])))
 def test_cuda_grid_kernels_match_plain_on_card(case, policy, cuda_device):
     idx, (t, c, m, n_win, win, ct, merge_mean, n_phantom) = case

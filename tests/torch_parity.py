@@ -4,7 +4,7 @@ only, so the tests that run on the card can use it too)."""
 import numpy as np
 import torch
 
-from repro_torch.core.policy_core import (ROW_EST, ROW_EWMA, ROW_LOADS,
+from repro_torch.core.policy_core import (BIG, ROW_EST, ROW_EWMA, ROW_LOADS,
                                           ROW_PROBS, init_table)
 from repro_torch.kernels.sched_select import ops as tops
 
@@ -41,6 +41,30 @@ def batch_case(t, m, n_win, win, seed):
             np.stack([table] * t),
             rng.integers(0, 2 ** 31, (t,)).astype(np.uint32),
             rng.uniform(50.0, 300.0, (t, n_win, m)).astype(np.float32))
+
+
+def table_variant(tables, kind, m):
+    """A copy of numpy initial tables (..., 4, M_pad) of kind "signed_zeros"
+    (loads of -0.0 and +0.0 in turns and a tied pair of 5.0: every score
+    ties exactly with another), "warm" (ewma 2.5 on every third server,
+    est 1.5 elsewhere: an est row that is not est's function of ewma) or
+    "pad_wins" (loads at BIG and est 0.5 on every server: ect's first
+    scores overflow and a padding lane wins the argmin)."""
+    tables = tables.copy()
+    if kind == "signed_zeros":
+        tables[..., ROW_LOADS, :m] = 0.0
+        tables[..., ROW_LOADS, :m:2] = -0.0
+        tables[..., ROW_LOADS, m // 2:m // 2 + 2] = 5.0
+    elif kind == "warm":
+        tables[..., ROW_EWMA, :m:3] = 2.5
+        tables[..., ROW_EST, :m] = np.where(tables[..., ROW_EWMA, :m] > 0,
+                                            tables[..., ROW_EWMA, :m], 1.5)
+    elif kind == "pad_wins":
+        tables[..., ROW_LOADS, :m] = BIG
+        tables[..., ROW_EST, :m] = 0.5
+    else:
+        raise ValueError(f"unknown table kind {kind!r}")
+    return tables
 
 
 def port_batch(arrays, device="cpu", fn=tops.sched_stream_batch, **kw):
