@@ -20,7 +20,11 @@ From the root of a checkout, with one CUDA card visible.  It
    with C not a multiple of the client tile, whole phantom clients, a
    padded last window, N = 16/17 and 32/33 (each form's p99 edge), the
    window and M_pad at their 1024 caps, and the merge as mean and as raw
-   sum; the legacy single-window `sched_select` wrapper; and flash
+   sum; the merge alone on operands made directly (`torch_parity.
+   MERGE_CASES`: C·N past its shared-memory staging, a p99 that 48
+   halvings leave below the k-th valid latency, ct not dividing C and
+   above 32, an all-phantom trial); the legacy single-window
+   `sched_select` wrapper; and flash
    attention at the JAX tests' six cases, non-causal, tile sweeps,
    ``is_global``, gemma-2b's serving shape and danube-like shapes (head
    dim 120, GQA 4, sliding window, ragged S), each f32 case also in
@@ -44,7 +48,8 @@ From the root of a checkout, with one CUDA card visible.  It
    compute, and held to a tolerance;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
-   request per stream per wave; the merge, the plain versions and one whole `run_trials` for
+   request per stream per wave; the merge (queued and back to back), the
+   plain versions and one whole `run_trials` for
    ``ect``: shared log, and per_client at 200 and at 64 clients; both
    flash kernels, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
@@ -68,7 +73,8 @@ from pathlib import Path
 from unittest import mock
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-# the tests' shared helpers (torch and numpy only): the table variants
+# the tests' shared helpers (torch and numpy only): the table variants and
+# the merge cases
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 
 import numpy as np  # noqa: E402
@@ -87,7 +93,7 @@ from repro_torch.kernels.sched_select import ops as sops  # noqa: E402
 from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from torch_parity import table_variant  # noqa: E402
+from torch_parity import MERGE_CASES, merge_case, table_variant  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +121,8 @@ GRID_SHAPES = ((3, 7, 37, 3, 16, 2, 2), (5, 40, 130, 2, 10, 32, 3),
 KW = dict(threshold=2.0, lam=50.0, window_dt=0.02, observe=True,
           renorm=True)
 REPS = 20
+MAX_QUEUED = 500
+HELD = []  # per queued reading: did the device wait for the host?
 PER_CLIENT_NOTE = "per_client window clamp"
 
 # flash attention against its plain version: (B, S, H, KV, hd, window,
@@ -207,28 +215,49 @@ def timed_ms(fn, reps=REPS) -> float:
 def queued_ms(fn, reps=REPS) -> float:
     """Mean ms per call of ``fn`` by CUDA events, with the device held
     busy (``torch.cuda._sleep``) while the host queues the calls, so the
-    events time the device alone and not the host's launch rate."""
+    events time the device alone and not the host's launch rate.  At
+    most `MAX_QUEUED` calls, below the depth of the card's launch queue
+    (a full queue blocks the host until the device drains it).  A reading
+    whose start event had already run when the last call was queued (the
+    host fell behind the device, or a wrapper synchronises) is marked in
+    `HELD`: it includes the device's waits for the host.  The sleep lasts
+    at least 25 ms and twice the host's time to queue the calls, from its
+    rate over the three warm-up calls."""
+    reps = min(reps, MAX_QUEUED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(50_000_000)      # ~25-30 ms at the H100's clocks
+    # about 2e6 cycles a ms at the H100's 1.98 GHz; longer at lower clocks
+    torch.cuda._sleep(int(max(50_000_000, 2 * reps * host_ms * 2e6)))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    HELD.append(start.query())
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
 def steady_ms(timer, fn, span_ms=25.0, runs=5):
-    """(median, least, largest) of ``runs`` timings of ``fn`` by ``timer``
-    (`timed_ms` or `queued_ms`), each over enough calls to span about
-    ``span_ms`` of device time: a short kernel's single reading moves with
-    the card's clocks from one moment to the next."""
+    """(median, least, largest, held) of ``runs`` timings of ``fn`` by
+    ``timer`` (`timed_ms` or `queued_ms`), each over enough calls to span
+    about ``span_ms`` of device time: a short kernel's single reading
+    moves with the card's clocks from one moment to the next.  ``held``:
+    some queued reading included the device's waits for the host."""
+    first = len(HELD)
     reps = max(REPS, int(span_ms / max(timer(fn), 1e-3)))
     times = sorted(timer(fn, reps=reps) for _ in range(runs))
-    return times[len(times) // 2], times[0], times[-1]
+    return times[len(times) // 2], times[0], times[-1], any(HELD[first:])
+
+
+def held_note(reading) -> str:
+    """A mark for a `steady_ms` reading by `queued_ms` that includes the
+    device's waits for the host."""
+    return " (host-held)" if reading[3] else ""
 
 
 def once_ms(fn) -> float:
@@ -335,6 +364,47 @@ def check_grid_case(shape, policy, merge_mean, seed, dev):
         fail(f"2-D kernels disagree with their plain version ({policy}, "
              f"M={m}, merge_mean={merge_mean})")
     return max_abs(got[:5], want[:5]), max_abs(got[5:], want[5:])
+
+
+def check_merge_cases(dev):
+    """The cross-client merge kernel against its plain version on the card
+    on operands made directly (`torch_parity.MERGE_CASES`: the main path's
+    shapes, C·N past the shared-memory staging, a p99 that 48 halvings
+    leave below the k-th valid latency, ct not dividing C and above 32, an
+    all-phantom trial), each as mean and as raw sum; every output
+    bit-exact.  Returns the largest absolute difference."""
+    worst = 0.0
+    for i, (t, c, n, n_win, m_pad, ct, kind) in enumerate(MERGE_CASES):
+        args = [torch.from_numpy(a).to(dev)
+                for a in merge_case(t, c, n, n_win, m_pad, kind, seed=i)]
+        for merge_mean in (True, False):
+            before = skernel.LAUNCHES["client_merge"]
+            got = skernel.client_merge_call(*args, client_tile=ct,
+                                            merge_mean=merge_mean)
+            torch.cuda.synchronize()
+            want = sref.client_merge_ref(*args, client_tile=ct,
+                                         merge_mean=merge_mean)
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            note = ""
+            if kind == "far_max" and merge_mean:
+                # the p99 lies below v_k, the k-th smallest valid latency
+                lat, val = args[2][0].flatten(), args[3][0].flatten() != 0
+                nval = np.float32(val.sum().item())
+                k = int(np.ceil(np.float32(0.99) * nval))
+                v_k = lat[val].sort().values[k - 1].item()
+                p99 = got[1][0, policy_core.MET_P99].item()
+                exact = exact and p99 < v_k
+                note = f", p99 {p99:.6g} below v_k {v_k:.6g}"
+            ok = exact and skernel.LAUNCHES["client_merge"] == before + 1
+            print(f"merge T={t} C={c} N={n} W={n_win} M_pad={m_pad} ct={ct} "
+                  f"{kind} mean={merge_mean}: "
+                  f"{'bit-exact' if exact else 'DIFFER'}{note} -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"client_merge disagrees with its plain version ({i}, "
+                     f"merge_mean={merge_mean})")
+            worst = max(worst, max_abs(got, want))
+    return worst
 
 
 def check_select(dev):
@@ -533,7 +603,7 @@ def time_stream_policies(form, launch, operands, card):
         q = steady_ms(queued_ms, lambda: launch(*kargs, **kkw))
         b = steady_ms(timed_ms, lambda: launch(*kargs, **kkw))
         times[p] = (q[0], b[0])
-        print(f"    {p:>10s} {q[0]:.4f} [{q[1]:.4f}-{q[2]:.4f}] "
+        print(f"    {p:>10s} {q[0]:.4f} [{q[1]:.4f}-{q[2]:.4f}]{held_note(q)} "
               f"({b[0]:.4f} [{b[1]:.4f}-{b[2]:.4f}]) ms, "
               f"{q[0] * 1e6 / waves / n:.1f} ns per request per "
               f"stream per wave ({waves} wave(s); {blocks_sm} blocks of "
@@ -602,8 +672,11 @@ def time_per_client(cfg, log, pols, dev, card):
     streams = skernel.sched_stream_grid_streams(*kargs, **kkw)
     _, lats, _, wloads, metrics = streams
     valid = kargs[2]
-    merge_ms = timed_ms(lambda: skernel.client_merge_call(
-        metrics, wloads, lats, valid, **merge_kw))
+    merge = lambda: skernel.client_merge_call(  # noqa: E731
+        metrics, wloads, lats, valid, **merge_kw)
+    merge_q = steady_ms(queued_ms, merge)
+    merge_b = steady_ms(timed_ms, merge)
+    merge_ms = merge_q[0]
     streams_plain_ms = once_ms(
         lambda: sref.sched_stream_grid_streams_ref(*kargs, **kkw))
     merge_plain_ms = once_ms(lambda: sref.client_merge_ref(
@@ -644,8 +717,11 @@ def time_per_client(cfg, log, pols, dev, card):
     print(f"  ect stream kernel (2-D)  {streams_ms:.4f} ms/launch queued, "
           f"plain {streams_plain_ms:.2f} ms, bound {s_bound:.5f} ms ({s_by}: "
           f"{s_bytes} bytes, {s_ops} f32 ops)")
-    print(f"  ect client_merge         {merge_ms:.4f} ms/launch, plain "
-          f"{merge_plain_ms:.2f} ms, bound {m_bound:.5f} ms ({m_by}: "
+    print(f"  ect client_merge         {merge_ms:.4f} [{merge_q[1]:.4f}-"
+          f"{merge_q[2]:.4f}]{held_note(merge_q)} ms/launch queued "
+          f"({merge_b[0]:.4f} "
+          f"[{merge_b[1]:.4f}-{merge_b[2]:.4f}] back to back), median of 5, "
+          f"plain {merge_plain_ms:.2f} ms, bound {m_bound:.5f} ms ({m_by}: "
           f"{m_bytes} bytes, {m_ops} f32 ops)")
     reqs = cfg.n_trials * cfg.n_requests
     print(f"  run_trials wall {wall_ms:.2f} ms "
@@ -685,8 +761,8 @@ def check_flash(dev):
         route = fops._route(q.dtype, hd, q.device.type)
         runs = [(route, lambda: fops.flash_attention(q, k, v, **kw))]
         if route == "wgmma":
-            runs.append(("simt", lambda: fops._run(
-                fkernel.flash_attention_call, q, k, v, **kw)))
+            runs.append(("simt", lambda: fops._run(fops._simt, q, k, v,
+                                                   **kw)))
         for name, run in runs:
             key = f"flash_attention_{name}"
             before = fkernel.LAUNCHES[key]
@@ -877,12 +953,16 @@ def time_flash(dev, card):
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         calls = {
             "wgmma": lambda: fops.flash_attention(q, k, v),
-            "simt": lambda: fops._run(fkernel.flash_attention_call, q, k, v),
+            "simt": lambda: fops._run(fops._simt, q, k, v),
             "plain": lambda: fops.flash_attention_plain(q, k, v),
             "sdpa": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)}
         back = {n: timed_ms(fn) for n, fn in calls.items()}
-        queued = {n: queued_ms(fn) for n, fn in calls.items()}
+        queued, held = {}, []
+        for n, fn in calls.items():
+            queued[n] = queued_ms(fn)
+            if HELD[-1]:
+                held.append(n)
         lib_err = (calls["sdpa"]().transpose(1, 2).float()
                    - calls["wgmma"]().float()).abs().max().item()
         bound_ms, bound_by, nbytes, flops = flash_bound(b, s, h, kv, hd)
@@ -894,7 +974,8 @@ def time_flash(dev, card):
               f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} FLOP)"
               f"; wgmma {queued['simt'] / queued['wgmma']:.1f}x faster than "
               f"simt, {queued['wgmma'] / queued['sdpa']:.2f}x sdpa's time, "
-              f"{flops / queued['wgmma'] / 1e9:.1f} TFLOP/s")
+              f"{flops / queued['wgmma'] / 1e9:.1f} TFLOP/s"
+              + (f"; host-held: {', '.join(held)}" if held else ""))
         if first is None:
             first = {n: dict(ms=queued[n], plain_ms=queued["plain"],
                              bound_ms=bound_ms, bound_by=bound_by,
@@ -966,6 +1047,7 @@ def main() -> None:
                 e_s, e_m = check_grid_case(shape, policy, merge_mean,
                                            1000 + 100 * i + j, dev)
                 err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
+    err_merge = max(err_merge, check_merge_cases(dev))
     check_select(dev)
 
     # -- the main paths at the paper's §4 size -----------------------------

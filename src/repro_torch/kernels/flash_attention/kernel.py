@@ -79,7 +79,8 @@ def _check_common(q, k, v, window, chunk) -> None:
         raise ValueError(f"H={h} must be a multiple of KV={kvh}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim={hd} must be in [1, {MAX_HEAD_DIM}] "
-                         "for this kernel")
+                         "for the CUDA flash kernels (their limit; the JAX "
+                         "reference has none)")
     for name, width in (("window", window), ("chunk", chunk)):
         if width is not None and width < 1:
             raise ValueError(f"{name}={width} must be at least 1")
@@ -108,8 +109,9 @@ def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in q's dtype."""
     b, s, h, hd = q.shape
     if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"q must be one of {tuple(DTYPE_CODES)}, got "
-                        f"{q.dtype}")
+        raise TypeError(f"q must be one of {tuple(DTYPE_CODES)} for the CUDA "
+                        f"flash kernels (their limit; the JAX reference has "
+                        f"none), got {q.dtype}")
     for name, blk in (("block_q", block_q), ("block_k", block_k)):
         if not 1 <= blk <= MAX_BLOCK:
             raise ValueError(f"{name}={blk} must be in [1, {MAX_BLOCK}]")

@@ -111,10 +111,13 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
         raise ValueError(f"N={n} is not W*window_size={n_win}*{window_size}")
     if not 1 <= window_size <= MAX_WINDOW:
         raise ValueError(f"window_size={window_size} must be in "
-                         f"[1, {MAX_WINDOW}] for this kernel")
+                         f"[1, {MAX_WINDOW}] for the CUDA stream kernel "
+                         "(its limit; the JAX reference has none)")
     if m_pad > MAX_M_PAD or m_pad % 128 or not 1 <= n_servers <= m_pad:
         raise ValueError(f"M_pad={m_pad} must be a multiple of 128 up to "
-                         f"{MAX_M_PAD} holding n_servers={n_servers}")
+                         f"{MAX_M_PAD} holding n_servers={n_servers} for the "
+                         "CUDA stream kernel (its limit of M_pad ≤ "
+                         f"{MAX_M_PAD}; the JAX reference has none)")
     _check("object_ids", object_ids, torch.int32, lead + (n,))
     _check("lengths", lengths, torch.float32, lead + (n,))
     _check("valid", valid, torch.int32, lead + (n,))
@@ -213,7 +216,8 @@ def stream_occupancy(form: str, policy: str, n_servers: int, m_pad: int,
 def client_merge_call(metrics: torch.Tensor, wloads: torch.Tensor,
                       lats: torch.Tensor, valid: torch.Tensor, *,
                       client_tile: int, merge_mean: bool):
-    """Launch the cross-client merge, one block per trial.
+    """Launch the cross-client merge: per trial, one block for the merged
+    latencies and their p99 and a few for the masked client sums.
 
     metrics (T, C, MET_PAD), wloads (T, C, W, M_pad), lats (T, C, N)
     float32 and valid (T, C, N) int32, as the stream kernel leaves them.

@@ -178,8 +178,9 @@ def _select(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
     n = object_ids.shape[1]
     if n > MAX_WINDOW:
         raise ValueError(f"sched_select schedules N={n} requests as one "
-                         f"window; the kernel caps a window at "
-                         f"MAX_WINDOW={MAX_WINDOW}")
+                         f"window; the CUDA stream kernel caps a window at "
+                         f"MAX_WINDOW={MAX_WINDOW} (its limit; the JAX "
+                         "reference has none)")
     choices, final = fn(object_ids.to(torch.int32).contiguous(),
                         lengths.to(torch.float32).contiguous(),
                         _pad_lanes(init_loads), seeds, n_servers=n_servers,

@@ -7,8 +7,9 @@ Tolerances as the JAX tests state them: 2e-5 in float32 (the two sides
 sum the products and the softmax in another order) and 2e-2 in bfloat16
 (both round the f32 result to bf16 once; an element near a rounding
 boundary may land one bf16 step apart).  The port's dispatch rules (CPU
-tensors take the plain version; the tile checks on any device; the CUDA
-wrapper refusing CPU tensors) are checked here too; the kernel itself
+tensors take the plain version; the tiles clamped on the SIMT route
+alone; the CUDA wrapper refusing CPU tensors and naming its domain) are
+checked here too; the kernel itself
 runs only on the card (tests/test_torch_gpu.py)."""
 
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention import ops as fops
 from test_kernels import FLASH_CASES as JAX_FLASH_CASES
 from torch_flash_cases import DANUBE_CASE, FLASH_CASES, flash_inputs
 
@@ -95,19 +97,41 @@ def test_plain_flash_is_global_disables_locality():
 
 
 def test_dispatch_and_tile_checks():
-    _, (tq, tk, tv) = _both(flash_inputs(1, 200, 4, 2, 32, seed=5),
-                            "float32")
+    (jq, jk, jv), (tq, tk, tv) = _both(flash_inputs(1, 200, 4, 2, 32, seed=5),
+                                       "float32")
     assert torch.equal(flash_attention(tq, tk, tv, window=40),
                        flash_attention_plain(tq, tk, tv, window=40))
-    # the JAX package's TPU tile default (128) is past the CUDA tile
-    with pytest.raises(ValueError, match="block_q=128"):
-        flash_attention(tq, tk, tv, block_q=128)
+    # the JAX package's default tiles (128, past the SIMT kernel's 64) run
+    # on the CPU route as in the JAX function (Pallas interpret mode)
+    out = flash_attention(tq, tk, tv, block_q=128, block_k=128)
+    want = jax_flash(jq, jk, jv, block_q=128, block_k=128)
+    assert _err(out, want) < TOL["float32"]
+    assert torch.equal(out, flash_attention(tq, tk, tv))
     # a short sequence clamps the tile to max(8, S), as the JAX ops does
     short = [x[:, :40] for x in (tq, tk, tv)]
     assert torch.equal(flash_attention(*short, block_q=128, block_k=128),
                        attention_ref(*short))
     with pytest.raises(ValueError, match="no flash attention"):
         flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+
+
+@pytest.mark.parametrize("s,tiles,want", [
+    (200, (128, 128), (64, 64)), (200, (32, 128), (32, 64)),
+    (40, (128, 128), (40, 40)), (4, (128, 16), (8, 8))])
+def test_simt_route_clamps_tiles_to_its_kernel(s, tiles, want, monkeypatch):
+    """The SIMT route alone has a tile limit: ``flash_attention`` clamps the
+    tiles to the sequence as the JAX function does, then the SIMT route to
+    the kernel's 64 rows; the CUDA wrapper is stubbed here."""
+    seen = {}
+
+    def record(q, k, v, **kw):
+        seen.update(kw)
+        return q
+    monkeypatch.setattr(fops, "flash_attention_call", record)
+    _, (tq, tk, tv) = _both(flash_inputs(1, s, 4, 2, 32, seed=s), "float32")
+    fops._run(fops._simt, tq, tk, tv, block_q=tiles[0], block_k=tiles[1])
+    assert (seen["block_q"], seen["block_k"]) == want
+    assert max(want) <= fkernel.MAX_BLOCK
 
 
 def test_kernel_wrapper_refuses_what_the_kernel_cannot_take():
@@ -125,5 +149,10 @@ def test_kernel_wrapper_refuses_what_the_kernel_cannot_take():
                                      torch.cat([tv] * 3, 2), **kw)
     with pytest.raises(TypeError, match="float16"):
         fkernel.flash_attention_call(tq.half(), tk.half(), tv.half(), **kw)
+    # each domain limit names itself and the reference's lack of one
+    with pytest.raises(TypeError, match="JAX reference has none"):
+        fkernel.flash_attention_call(tq.half(), tk.half(), tv.half(), **kw)
+    with pytest.raises(ValueError, match="JAX reference has none"):
+        fkernel.flash_attention_call(big, big[:, :, :1], big[:, :, :1], **kw)
     with pytest.raises(ValueError, match="block_k=65"):
         fkernel.flash_attention_call(tq, tk, tv, **dict(kw, block_k=65))

@@ -64,7 +64,7 @@ def test_route_table(dtype, hd, device, route):
 def test_route_names_its_kernels_and_refuses_other_devices():
     assert fops._route(torch.float16, 64, "cuda") == "simt"
     assert fops._ROUTES["wgmma"] is fops._wgmma
-    assert fops._ROUTES["simt"] is fkernel.flash_attention_call
+    assert fops._ROUTES["simt"] is fops._simt
     with pytest.raises(ValueError, match="no flash attention"):
         fops._route(torch.bfloat16, 64, "meta")
     assert set(fkernel.LAUNCHES) == {"flash_attention_wgmma",

@@ -22,18 +22,21 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import simulate
 from repro_torch.core.policies import PolicyConfig
+from repro_torch.core.policy_core import MET_P99
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.sched_select import kernel as tkernel
 from repro_torch.kernels.sched_select import ops as tops
+from repro_torch.kernels.sched_select import ref as tref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as T
 from torch_flash_cases import DANUBE_CASE, FLASH_CASES, flash_inputs
-from torch_parity import (BATCH_CASES, GRID_CASES, KW, assert_grid_outputs,
-                          assert_stream_outputs, batch_case, grid_case,
-                          port_batch, table_variant)
+from torch_parity import (BATCH_CASES, GRID_CASES, KW, MERGE_CASES,
+                          assert_grid_outputs, assert_stream_outputs,
+                          batch_case, grid_case, merge_case, port_batch,
+                          table_variant)
 
 pytestmark = pytest.mark.gpu
 
@@ -152,6 +155,35 @@ def test_cuda_grid_kernels_match_plain_on_card(case, policy, cuda_device):
     want = port_batch(arrays, cuda_device, fn=tops.sched_stream_grid_plain,
                       **kw)
     assert_grid_outputs(got, want, win, f"cuda grid {policy} {case[1]}")
+
+
+@pytest.mark.parametrize("merge_mean", [True, False])
+@pytest.mark.parametrize("case", enumerate(MERGE_CASES),
+                         ids=lambda c: "-".join(map(str, c[1])))
+def test_cuda_merge_matches_plain_on_card(case, merge_mean, cuda_device):
+    """The merge kernel alone on operands made directly: the main path's
+    shapes, C·N past its shared-memory staging, ct not dividing C and
+    above 32, an all-phantom trial, and a p99 below the k-th valid
+    latency; every output bit-exact with the plain version."""
+    idx, (t, c, n, n_win, m_pad, ct, kind) = case
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in merge_case(t, c, n, n_win, m_pad, kind, seed=idx)]
+    before = tkernel.LAUNCHES["client_merge"]
+    got = tkernel.client_merge_call(*args, client_tile=ct,
+                                    merge_mean=merge_mean)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES["client_merge"] == before + 1
+    want = tref.client_merge_ref(*args, client_tile=ct, merge_mean=merge_mean)
+    for name, a, b in zip(("cm_wloads", "cm_metrics", "cm_lats", "cm_lval"),
+                          got, want):
+        np.testing.assert_array_equal(a.cpu().numpy().view(np.uint32),
+                                      b.cpu().numpy().view(np.uint32),
+                                      err_msg=name)
+    if kind == "far_max" and merge_mean:
+        lat, val = args[2][0].flatten(), args[3][0].flatten() != 0
+        k = int(np.ceil(np.float32(0.99) * np.float32(val.sum().item())))
+        v_k = lat[val].sort().values[k - 1].item()
+        assert got[1][0, MET_P99].item() < v_k
 
 
 @pytest.mark.parametrize("policy", ["ect", "two_choice"])

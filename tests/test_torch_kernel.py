@@ -89,3 +89,24 @@ def test_seed_bit_pattern():
     np.testing.assert_array_equal(
         got.numpy().view(np.uint32),
         np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1], np.uint32))
+
+
+@pytest.mark.parametrize("window,m_pad,match", [
+    (1025, 128, "window_size=1025 .* CUDA stream kernel .* JAX reference "
+                "has none"),
+    (8, 1152, "M_pad=1152 .* CUDA stream kernel .* JAX reference has none")])
+def test_stream_kernel_domain_is_stated(window, m_pad, match):
+    """The CUDA stream kernel's limits (README: window ≤ 1024, M_pad ≤
+    1024) raise before any build or launch, each naming its limit and that
+    the reference has none; nothing falls back to the CPU."""
+    t, n_win, m = 2, 1, 20
+    n = n_win * window
+    zeros = lambda *s: torch.zeros(s)  # noqa: E731
+    with pytest.raises(ValueError, match=match):
+        tkernel.sched_stream_call(
+            torch.zeros((t, n), dtype=torch.int32), zeros(t, n),
+            torch.ones((t, n), dtype=torch.int32), zeros(t, 4, m_pad),
+            torch.zeros(t, dtype=torch.long), zeros(t, n_win, m_pad),
+            n_servers=m, window_size=window, threshold=2.0, lam=50.0,
+            alpha=0.25, window_dt=0.02, policy="ect", observe=True,
+            renorm=True)

@@ -4,8 +4,9 @@ only, so the tests that run on the card can use it too)."""
 import numpy as np
 import torch
 
-from repro_torch.core.policy_core import (BIG, ROW_EST, ROW_EWMA, ROW_LOADS,
-                                          ROW_PROBS, init_table)
+from repro_torch.core.policy_core import (BIG, MET_N_VALID, MET_PAD,
+                                          N_METRICS, ROW_EST, ROW_EWMA,
+                                          ROW_LOADS, ROW_PROBS, init_table)
 from repro_torch.kernels.sched_select import ops as tops
 
 # (T, M, W, window, policy): tests/test_kernels.py's BATCH_CASES (odd M,
@@ -143,3 +144,60 @@ def assert_grid_outputs(got, want, window_size, ctx):
                           got[5:], want[5:]):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                       err_msg=f"{ctx}: {name}")
+
+
+# The cross-client merge on operands made directly (not by the stream
+# kernel): (T, C, N, W, M_pad, client_tile, kind).  The per_client main
+# path's shapes (200 x 10 and 64 x 32); C·N past the kernel's shared-memory
+# staging of 8,192 latencies; ct not dividing C; ct above 32 (the fold
+# outside registers, P = 64 and 128); ct = 1 (many rounds of client
+# blocks); W·M_pad = 30, so the merged row's lanes straddle two column
+# blocks; one client.  Kinds: "spread" (wide magnitudes, so the float
+# association shows), "phantom_trial" (trial 0 has no real client),
+# "far_max" (latencies near 1 beside one near 3e38: 48 halvings leave lo
+# at -1, and the p99 is the least valid latency, below the k-th),
+# "ties" (latencies from four values and zeros of both signs).
+MERGE_CASES = [
+    (3, 200, 10, 1, 128, 32, "spread"),
+    (2, 64, 32, 1, 128, 32, "spread"),
+    (2, 300, 50, 1, 128, 32, "spread"),
+    (2, 201, 7, 2, 128, 8, "spread"),
+    (2, 150, 5, 1, 128, 64, "spread"),
+    (2, 130, 6, 1, 128, 100, "spread"),
+    (2, 37, 4, 1, 128, 1, "spread"),
+    (2, 9, 3, 3, 10, 4, "spread"),
+    (2, 1, 16, 1, 128, 1, "spread"),
+    (3, 40, 10, 1, 128, 32, "phantom_trial"),
+    (2, 200, 10, 1, 128, 32, "far_max"),
+    (2, 300, 50, 1, 128, 32, "far_max"),
+    (2, 64, 32, 1, 128, 32, "ties"),
+]
+
+
+def merge_case(t, c, n, n_win, m_pad, kind, seed):
+    """Numpy operands of one `client_merge_call`: (metrics (T, C, MET_PAD),
+    wloads (T, C, W, M_pad), lats (T, C, N), valid (T, C, N) int32), a
+    client real iff its n_valid lane (its count of valid steps) is
+    positive; about one client in eight has no valid step."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((t, c, n)) > 0.25
+    valid[:, rng.random(c) < 0.125] = False
+    if kind == "phantom_trial":
+        valid[0] = False
+    lats = rng.lognormal(-2.0, 1.0, (t, c, n)).astype(np.float32)
+    if kind == "far_max":
+        lats = (1.0 + rng.random((t, c, n)) * 1e-3).astype(np.float32)
+        for i in range(t):
+            ci, si = np.argwhere(valid[i])[0]
+            lats[i, ci, si] = 3.0e38
+    elif kind == "ties":
+        lats = rng.choice(np.array([0.5, 0.25, -0.0, 0.0], np.float32),
+                          (t, c, n))
+    lats[~valid] = rng.lognormal(0.0, 1.0, int((~valid).sum()))
+    wloads = (rng.lognormal(2.0, 2.5, (t, c, n_win, m_pad))
+              * rng.choice([1.0, 1.0, -1.0], (t, c, n_win, m_pad))).astype(
+                  np.float32)
+    metrics = np.zeros((t, c, MET_PAD), np.float32)
+    metrics[..., :N_METRICS] = rng.lognormal(0.0, 1.5, (t, c, N_METRICS))
+    metrics[..., MET_N_VALID] = valid.sum(axis=-1)
+    return metrics, wloads, lats, valid.astype(np.int32)
