@@ -1,14 +1,19 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --walls DIR
 
-From the root of a checkout, with one CUDA card visible.  It
+From the root of a checkout, with one CUDA card visible.  With
+``--walls DIR`` it only times the main paths' `run_trials` walls of this
+tree and of the checkout at DIR, alternately (`compare_walls`).  With no
+arguments it
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the CUDA kernels with nvcc (one nvcc per source, started
    together: the stream kernels, the SIMT flash kernel and the wgmma
-   flash kernel) and prints the ``-Xptxas -v`` register / shared-memory /
-   spill lines;
+   flash kernel) and prints every stream kernel instantiation's
+   registers, stack, spills and SASS instruction count (``-Xptxas -v``,
+   ``cuobjdump -sass``) and the other kernels' ``-Xptxas -v`` lines;
 3. holds each kernel against its plain PyTorch version on the card: the
    stream kernel in its 1-D form for all eight policies at M in
    {37, 130, 300, 1000}, with a padded final window, T not a multiple of
@@ -24,7 +29,11 @@ From the root of a checkout, with one CUDA card visible.  It
    MERGE_CASES`: C·N past its shared-memory staging, a p99 that 48
    halvings leave below the k-th valid latency, ct not dividing C and
    above 32, an all-phantom trial); the legacy single-window
-   `sched_select` wrapper; and flash
+   `sched_select` wrapper; the stream kernel's ablate levels 1-3 for all
+   eight policies at two shapes (the final tables and window loads bit for
+   bit, the choices and latencies at level 1, zeros past the dropped
+   phase), level 0 against the unablated launch, and the 2-D form's
+   refusal of a level; and flash
    attention at the JAX tests' six cases, non-causal, tile sweeps,
    ``is_global``, gemma-2b's serving shape and danube-like shapes (head
    dim 120, GQA 4, sliding window, ragged S), each f32 case also in
@@ -39,7 +48,13 @@ From the root of a checkout, with one CUDA card visible.  It
    shared log, and the same sweep per_client (200 clients, window 10
    after the clamp), each for the six engine policies, every
    `TrialResult` field held against the same prep scheduled by the plain
-   versions on the card; then the LM serving path
+   versions on the card; then the profiling and tuning path
+   (`repro_torch.tune`): `kernel_phase_profile` for ect at the same size
+   (its launches counted: level 0 and the ablate levels, nothing else),
+   `run_trials` with the stream kernel's warps per block at 1, 2, 4 and 8
+   against the default launch for the six policies, shared log and
+   per_client, and the autotuner's CLI on one preset into a temporary
+   table; then the LM serving path
    (`repro_torch.launch.serve.serve`): gemma-2b at full width and depth
    (random weights from seed 0), batch 4, prompt 512, 16 generated
    tokens, whose prefill must launch the wgmma flash kernel once per
@@ -49,13 +64,17 @@ From the root of a checkout, with one CUDA card visible.  It
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
-   plain versions and one whole `run_trials` for
+   plain versions and `run_trials` (wall and stages, medians of five) for
    ``ect``: shared log, and per_client at 200 and at 64 clients; both
    flash kernels, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    at the serving shape and at S = 2048 and 8192 (each also with the
    host held off the device's clock, see `queued_ms`); and
-   `sched_select` at N = 1024, M = 100;
+   `sched_select` at N = 1024, M = 100; and the stream kernel's phase split
+   for the six engine policies at the shared-log operands: levels 0-3
+   queued, back to back and the kernel alone (torch.profiler), and their
+   differences (metrics, steps, plan, dispatch) in ms and as shares of
+   level 0;
 6. prints the ``kernels`` JSON line, then, last, the device JSON line.
 
 Any failure ends the run with a non-zero exit and no result line.  It
@@ -64,8 +83,12 @@ never runs on the CPU: without a card it exits before printing results.
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -93,6 +116,8 @@ from repro_torch.kernels.sched_select import ops as sops  # noqa: E402
 from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.tune import __main__ as tune_cli  # noqa: E402
+from repro_torch.tune import profile as tune_profile  # noqa: E402
 from torch_parity import MERGE_CASES, merge_case, table_variant  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
@@ -118,10 +143,13 @@ GRID_SHAPES = ((3, 7, 37, 3, 16, 2, 2), (5, 40, 130, 2, 10, 32, 3),
                (2, 9, 37, 1, 16, 4, 1), (2, 9, 37, 1, 17, 4, 1),
                (2, 9, 37, 2, 16, 4, 1), (2, 9, 37, 3, 11, 4, 1),
                (2, 3, 1000, 1, 1024, 2, 1))
+# the ablate levels' checks: a few streams, and T above the SMs
+ABLATE_SHAPES = (CHECK_SHAPES[0], CHECK_SHAPES[3])
+LEVELS = skernel.ABLATE_LEVELS
 KW = dict(threshold=2.0, lam=50.0, window_dt=0.02, observe=True,
           renorm=True)
 REPS = 20
-MAX_QUEUED = 500
+MAX_QUEUED = 500  # kernel launches queued at once: below the launch queue
 HELD = []  # per queued reading: did the device wait for the host?
 PER_CLIENT_NOTE = "per_client window clamp"
 
@@ -212,18 +240,54 @@ def timed_ms(fn, reps=REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps=REPS) -> float:
+def launches_per_call(fn) -> int:
+    """The kernels one call of ``fn`` launches, by torch.profiler: a
+    wrapper's small tensor operations each take a slot of the card's
+    launch queue beside its kernel."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return max(1, sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA))
+
+
+def kernel_alone_ms(fn, name, calls=REPS):
+    """Mean device ms of the kernels whose name holds ``name`` over
+    ``calls`` calls of ``fn``, by torch.profiler: the kernel alone, without
+    the wrapper's other kernels or the host's gaps.  None if the trace
+    holds no such kernel for every call (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key
+              and e.self_device_time_total > 0]
+    if sum(e.count for e in events) != calls:
+        return None
+    return sum(device_ms(e) for e in events) / calls
+
+
+def queued_ms(fn, reps=REPS, per_call=1) -> float:
     """Mean ms per call of ``fn`` by CUDA events, with the device held
     busy (``torch.cuda._sleep``) while the host queues the calls, so the
     events time the device alone and not the host's launch rate.  At
-    most `MAX_QUEUED` calls, below the depth of the card's launch queue
-    (a full queue blocks the host until the device drains it).  A reading
+    most `MAX_QUEUED` launches, ``per_call`` a call, below the depth of
+    the card's launch queue (a full queue blocks the host until the device
+    drains it).  A reading
     whose start event had already run when the last call was queued (the
     host fell behind the device, or a wrapper synchronises) is marked in
     `HELD`: it includes the device's waits for the host.  The sleep lasts
     at least 25 ms and twice the host's time to queue the calls, from its
     rate over the three warm-up calls."""
-    reps = min(reps, MAX_QUEUED)
+    reps = max(1, min(reps, MAX_QUEUED // per_call))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
@@ -245,12 +309,17 @@ def queued_ms(fn, reps=REPS) -> float:
 def steady_ms(timer, fn, span_ms=25.0, runs=5):
     """(median, least, largest, held) of ``runs`` timings of ``fn`` by
     ``timer`` (`timed_ms` or `queued_ms`), each over enough calls to span
-    about ``span_ms`` of device time: a short kernel's single reading
-    moves with the card's clocks from one moment to the next.  ``held``:
-    some queued reading included the device's waits for the host."""
+    about ``span_ms`` of device time (`queued_ms` fewer where the calls'
+    launches would fill the launch queue): a short kernel's single
+    reading moves with the card's clocks from one moment to the next.
+    ``held``: some queued reading included the device's waits for the
+    host."""
+    kw = {}
+    if timer is queued_ms:
+        kw["per_call"] = launches_per_call(fn)
     first = len(HELD)
-    reps = max(REPS, int(span_ms / max(timer(fn), 1e-3)))
-    times = sorted(timer(fn, reps=reps) for _ in range(runs))
+    reps = max(REPS, int(span_ms / max(timer(fn, **kw), 1e-3)))
+    times = sorted(timer(fn, reps=reps, **kw) for _ in range(runs))
     return times[len(times) // 2], times[0], times[-1], any(HELD[first:])
 
 
@@ -281,6 +350,67 @@ def bound(bytes_moved: float, ops: float):
 # -- kernels against their plain versions ------------------------------------
 
 
+# a stream kernel instantiation's mangled name: <policy, lanes, level>
+INSTANCE = re.compile(r"sched_stream_kernelILi(\d)ELi(\d+)ELi(\d)E")
+
+
+def sass_counts(library) -> dict:
+    """(policy code, lanes, level) -> SASS instructions (NOPs left out)
+    of every stream kernel instantiation in the built ``library``, by
+    ``cuobjdump -sass``; {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(library)],
+                             capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    counts, cur = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = INSTANCE.search(line)
+            cur = tuple(map(int, m.groups())) if m else None
+            if cur:
+                counts[cur] = 0
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S",
+                              line):
+            counts[cur] += 1
+    return counts
+
+
+def stream_kernel_table() -> None:
+    """Print every stream kernel instantiation's registers, stack frame
+    and spill bytes (ptxas) and SASS instruction count, by policy: level 0
+    with 16 and 32 lanes a stream, the ablate levels 1-3 with 32."""
+    props, cur = {}, None
+    for line in _build.build_log(skernel.SOURCE).splitlines():
+        m = INSTANCE.search(line)
+        if m and "Compiling entry" in line:
+            cur = tuple(map(int, m.groups()))
+            props[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if cur and m:
+            props[cur].update(stack=int(m[1]), spill=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            props[cur]["regs"] = int(m[1])
+            cur = None
+    sass = sass_counts(_build.build(skernel.SOURCE))
+    print(f"  sched_stream.cu: {len(props)} stream kernel instantiations; "
+          "registers / stack bytes / spill bytes / SASS instructions"
+          + ("" if sass else " (no cuobjdump: SASS not counted)"))
+    for name, code in skernel.POLICY_CODES.items():
+        cells = []
+        for lanes, level in [(16, 0)] + [(32, lv) for lv in LEVELS]:
+            pr = props.get((code, lanes, level), {})
+            cells.append(f"{lanes}L/L{level} {pr.get('regs')}/"
+                         f"{pr.get('stack')}/{pr.get('spill')}/"
+                         f"{sass.get((code, lanes, level), '-')}")
+        print(f"    {name:>10s}: " + ", ".join(cells))
+
+
 def initial_tables(kind, t, m, dev):
     """(T, 4, M) initial tables: "init" is `policy_core.init_table`; the
     other kinds are the tests' `table_variant` of it."""
@@ -290,15 +420,15 @@ def initial_tables(kind, t, m, dev):
     return torch.from_numpy(tables).to(dev)
 
 
-def check_case(t, m, n_win, win, table, policy, seed, dev):
-    """1-D kernel against plain version on the card for one case; returns
-    the largest absolute difference over all outputs."""
+def stream_operands(t, m, n_win, win, table, seed, dev):
+    """The 1-D operands of one case on ``dev``: about a fifth of the
+    requests invalid and the last third of the final window padding."""
     rng = np.random.default_rng(seed)
     n = n_win * win
     valid = rng.random((t, n)) > 0.2
     valid[:, n - win // 3:] = False                # padded final window
     tables = initial_tables(table, t, m, dev)
-    args = (torch.from_numpy(rng.integers(0, 8 * m, (t, n)).astype(
+    return (torch.from_numpy(rng.integers(0, 8 * m, (t, n)).astype(
                 np.int32)).to(dev),
             torch.from_numpy(rng.uniform(1.0, 20.0, (t, n)).astype(
                 np.float32)).to(dev),
@@ -306,6 +436,18 @@ def check_case(t, m, n_win, win, table, policy, seed, dev):
             torch.from_numpy(rng.integers(0, 2 ** 32, (t,))).to(dev),
             torch.from_numpy(rng.uniform(50.0, 300.0, (t, n_win, m)).astype(
                 np.float32)).to(dev))
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and bit patterns (float32 / int32 tensors)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_case(t, m, n_win, win, table, policy, seed, dev):
+    """1-D kernel against plain version on the card for one case; returns
+    the largest absolute difference over all outputs."""
+    args = stream_operands(t, m, n_win, win, table, seed, dev)
     kw = dict(KW, n_servers=m, window_size=win, policy=policy)
     got = sops.sched_stream_batch(*args, **kw)
     torch.cuda.synchronize()
@@ -320,6 +462,68 @@ def check_case(t, m, n_win, win, table, policy, seed, dev):
     if not ok:
         fail(f"kernel disagrees with its plain version ({policy}, M={m})")
     return max_abs(got, want)
+
+
+def check_ablate(dev):
+    """The ablated 1-D kernel against the ablated plain version for all
+    eight policies at `ABLATE_SHAPES` and levels 1-3: the final tables and
+    window loads bit for bit at every level, the choices and latencies at
+    level 1, zeros past the dropped phase (the metric row from level 1 on,
+    the choices and latencies from level 2 on), one ablated launch each
+    and no other.  Level 0 must be the unablated launch; the 2-D form
+    refuses a level in its wrapper and in the C entry.  Returns the largest
+    absolute difference."""
+    worst = 0.0
+    for i, (t, m, n_win, win, table) in enumerate(ABLATE_SHAPES):
+        for j, policy in enumerate(BODY_POLICIES):
+            args = stream_operands(t, m, n_win, win, table,
+                                   5000 + 100 * i + j, dev)
+            kw = dict(KW, n_servers=m, window_size=win, policy=policy)
+            full = sops.sched_stream_batch(*args, **kw)
+            level0 = sops.sched_stream_batch(*args, ablate=0, **kw)
+            verdicts = ["L0 " + ("= full" if all(
+                same_bits(a, b) for a, b in zip(full, level0)) else "DIFFER")]
+            for level in LEVELS[1:]:
+                before = all_counts()
+                got = sops.sched_stream_batch(*args, ablate=level, **kw)
+                torch.cuda.synchronize()
+                step = {k: all_counts()[k] - before[k] for k in before}
+                want = sops.sched_stream_batch_plain(*args, ablate=level,
+                                                     **kw)
+                ch, lat, tab, wl, met = got
+                ok = (same_bits(tab, want[2]) and same_bits(wl, want[3])
+                      and same_bits(met, want[4]) and not met.any()
+                      and same_bits(ch, want[0]) and same_bits(lat, want[1])
+                      and (level == 1 or not (ch.any() or lat.any()))
+                      and step == {k: int(k == "sched_stream_ablate")
+                                   for k in step})
+                verdicts.append(f"L{level} {'ok' if ok else 'FAIL'}")
+                worst = max(worst, max_abs(got, want))
+            print(f"ablate {policy:>10s} T={t} M={m} W={n_win} win={win}: "
+                  + ", ".join(verdicts))
+            if any("DIFFER" in v or "FAIL" in v for v in verdicts):
+                fail(f"the ablated kernel disagrees with its plain version "
+                     f"({policy}, T={t})")
+    t, c, m, n_win, win = 2, 3, 37, 2, 16
+    gargs = [x.reshape(t, c, *x.shape[1:]) for x in stream_operands(
+        t * c, m, n_win, win, "init", 6000, dev)[:5]]
+    gargs.append(stream_operands(t, m, n_win, win, "init", 6001, dev)[5])
+    kw = dict(KW, n_servers=m, window_size=win, policy="ect")
+    refused = []
+    try:
+        sops.sched_stream_grid(*gargs, ablate=1, **kw)
+    except ValueError:
+        refused.append("wrapper")
+    try:
+        skernel._launch_streams(*sops.pad_operands(*gargs),
+                                form="sched_stream_grid", lead=(t, c),
+                                ablate=1, alpha=0.25, **kw)
+    except RuntimeError:
+        refused.append("C entry")
+    print(f"ablate on the 2-D form refused by: {', '.join(refused)}")
+    if refused != ["wrapper", "C entry"]:
+        fail("the 2-D form accepted an ablate level")
+    return worst
 
 
 def check_grid_case(shape, policy, merge_mean, seed, dev):
@@ -543,29 +747,162 @@ def check_per_client(results, cfg, log, pols, dev):
     return err_streams, err_merge
 
 
+# -- the profiling and tuning path --------------------------------------------
+
+
+def run_tune_path(card):
+    """`kernel_phase_profile` for ect at its defaults (the §4 size: T=100,
+    N=2,000, M=100, window 100), the launch counts zeroed just before and
+    read just after: each of the four levels runs once untimed and three
+    times timed, so level 0 launches 4 times and the ablate levels 12,
+    and nothing else launches.  Returns the counts."""
+    zero_counts()
+    split = tune_profile.kernel_phase_profile(policy="ect")
+    torch.cuda.synchronize()
+    counts = all_counts()
+    want = dict({k: 0 for k in counts}, sched_stream=4,
+                sched_stream_ablate=12)
+    if counts != want:
+        fail(f"kernel_phase_profile launched {counts}, expected {want}")
+    if not all(np.isfinite(v) and v >= 0.0 for v in split.values()):
+        fail(f"kernel_phase_profile returned {split}")
+    total = split["total_s"]
+    print(f"tune path: kernel_phase_profile(policy='ect') on {card}, "
+          f"launches {counts}; wall ms (median of 3, host clock around a "
+          f"synchronize; the engine's prep and bookkeeping included): total "
+          f"{total * 1e3:.4f}, "
+          + ", ".join(f"{k[:-2]} {split[k] * 1e3:.4f} "
+                      f"({split[k] / total:.3f})"
+                      for k in ("metrics_s", "steps_s", "plan_s",
+                                "dispatch_s")))
+    return counts
+
+
+def check_launch_shapes(runs, pols):
+    """`run_trials` with the stream kernel's warps per block
+    (``trial_tile``) at 1, 2, 4 and 8, field for field against the default
+    launch, for every policy of ``pols`` in every (name, cfg, log) of
+    ``runs``."""
+    for name, cfg, log in runs:
+        for p, pol in pols.items():
+            base = simulate.run_trials(0, cfg, pol, log)
+            for tt in (1, 2, 4, 8):
+                res = simulate.run_trials(
+                    0, dataclasses.replace(cfg, trial_tile=tt), pol, log)
+                bad = [f for f, a, b in zip(res._fields, res, base)
+                       if not torch.equal(a, b)]
+                if bad:
+                    fail(f"{name} {p}: trial_tile={tt} moved {bad}")
+        print(f"launch shapes, {name}: run_trials with trial_tile 1, 2, 4, "
+              f"8 bit-identical to the default for {', '.join(pols)}")
+
+
+def run_tune_cli(card):
+    """`python -m repro_torch.tune --tune batch_ect` (in this process)
+    into a temporary table; its entry must name the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "TUNE_sched_torch.json"
+        if tune_cli.main(["--tune", "batch_ect", "--path", str(path)]) != 0:
+            fail("python -m repro_torch.tune --tune batch_ect failed")
+        (key, entry), = json.loads(path.read_text())["entries"].items()
+    if entry.get("card") != torch.cuda.get_device_name(0) or not entry.get(
+            "power_limit"):
+        fail(f"the tuned entry does not name the card: {entry}")
+    print(f"tune CLI on {card}: {key} -> {json.dumps(entry, sort_keys=True)}")
+
+
 # -- timing -------------------------------------------------------------------
 
 
-def stage_split(cfg, log, pol, dev):
-    """(run_trials wall ms, [prep, sched, post] ms), each stage ended by a
-    synchronize."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def stage_split(cfg, log, pol, runs=5):
+    """(run_trials wall ms, [prep, sched, post] ms), each the median of
+    ``runs`` host-clock readings of a run ended by a synchronize: first
+    ``runs`` walls one after another, the stage hooks inert (the method of
+    `WALLS_SCRIPT`), then ``runs`` runs under `tune.profile.collect`,
+    which synchronizes at both ends of each outermost stage."""
+    walls, stages = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        simulate.run_trials(0, cfg, pol, log)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(runs):
+        with tune_profile.collect() as got:
+            simulate.run_trials(0, cfg, pol, log)
+        stages.append([got[k] * 1e3 for k in ("prep", "sched", "post")])
+    mid = runs // 2
+    return (sorted(walls)[mid],
+            [sorted(col)[mid] for col in zip(*stages)])
+
+
+# `python3 chip_smoke.py --walls DIR`: the run_trials walls of the main
+# paths (ect; shared log, per_client at 200 and at 64 clients), five
+# synchronized runs one after another after a warm-up, as `stage_split`
+# takes them, in a process of its own per tree.  It uses only what every
+# slice of the port has, so it times an older checkout at DIR too.
+WALLS_SCRIPT = r"""
+import json, time, warnings
+import torch
+from repro_torch.core import simulate
+from repro_torch.core.policies import PolicyConfig
+warnings.filterwarnings("ignore", message="per_client window clamp")
+pol = PolicyConfig(name="ect", threshold=0.05)
+tr = simulate.ScenarioConfig("transient")
+cfgs = {"shared_log": simulate.SimConfig(scenario=tr),
+        "per_client_200": simulate.SimConfig(client_model="per_client",
+                                             scenario=tr),
+        "per_client_64": simulate.SimConfig(client_model="per_client",
+                                            n_clients=64, scenario=tr)}
+out = {}
+for name, cfg in cfgs.items():
+    log = simulate.default_log_cfg(cfg)
     simulate.run_trials(0, cfg, pol, log)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    marks = [time.perf_counter()]
-    init, mask, works, states, traces, seeds = prep(cfg, log, dev)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    sched = simulate._sched_trials(cfg, pol, log, works, states, seeds,
-                                   traces)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    simulate._post_trials(cfg, init, mask, works, traces, *sched)
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    return wall_ms, [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        simulate.run_trials(0, cfg, pol, log)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out[name] = sorted(walls)
+print(json.dumps(out))
+"""
+
+
+def compare_walls(other: Path, rounds: int = 5) -> None:
+    """The main paths' walls of this tree and of the checkout at
+    ``other``, alternately (other, this, this, other, other, this, ...),
+    each run in a fresh process by `WALLS_SCRIPT`: per round the median
+    of five [range], then per path the two trees' medians of the round
+    medians."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this run needs a card")
+    print(card_line())
+    trees = {"other": other.resolve(), "this": Path(__file__).resolve().parent}
+    order = []
+    for i in range(rounds):
+        order += ["other", "this"] if i % 2 == 0 else ["this", "other"]
+    got = {"other": [], "this": []}
+    for tag in order:
+        root = trees[tag]
+        run = subprocess.run(
+            [sys.executable, "-c", WALLS_SCRIPT], cwd=root,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")),
+            capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            fail(f"walls of {root} failed:\n{run.stderr[-4000:]}")
+        walls = json.loads(run.stdout.strip().splitlines()[-1])
+        got[tag].append(walls)
+        print(f"{tag} ({root}): " + "; ".join(
+            f"{k} {v[2]:.2f} [{v[0]:.2f}-{v[-1]:.2f}]"
+            for k, v in walls.items()) + " ms")
+    for k in got["this"][0]:
+        med = {t: sorted(w[k][2] for w in got[t]) for t in got}
+        print(f"{k}: median of {rounds} round medians, other "
+              f"{med['other'][rounds // 2]:.2f} ms, this "
+              f"{med['this'][rounds // 2]:.2f} ms; round medians other "
+              f"{med['other']}, this {med['this']}")
 
 
 def main_path_operands(cfg, log, pol, dev, hook):
@@ -616,7 +953,7 @@ def time_shared_log(cfg, log, pols, dev, card):
                 for p, pol in pols.items()}
     kargs, kkw = operands["ect"]
     plain_ms = once_ms(lambda: sref.sched_stream_batch_ref(*kargs, **kkw))
-    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"], dev)
+    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"])
 
     # least time for the same work, over the n_servers real lanes (the
     # padding to 128 lanes is the kernel's choice, not the function's):
@@ -645,7 +982,7 @@ def time_shared_log(cfg, log, pols, dev, card):
     print(f"  ect kernel  {kernel_ms:.4f} ms/launch queued "
           f"({reqs / kernel_ms * 1e3:.0f} requests/s)")
     print(f"  ect plain   {plain_ms:.2f} ms")
-    print(f"  run_trials wall {wall_ms:.2f} ms "
+    print(f"  run_trials wall {wall_ms:.2f} ms, median of 5 "
           f"({reqs / wall_ms * 1e3:.0f} requests/s)")
     print(f"  stages  prep {stage_ms[0]:.2f} ms, sched {stage_ms[1]:.2f} ms"
           f" (stream kernel {kernel_ms:.4f} ms of it), post "
@@ -681,7 +1018,7 @@ def time_per_client(cfg, log, pols, dev, card):
         lambda: sref.sched_stream_grid_streams_ref(*kargs, **kkw))
     merge_plain_ms = once_ms(lambda: sref.client_merge_ref(
         metrics, wloads, lats, valid, **merge_kw))
-    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"], dev)
+    wall_ms, stage_ms = stage_split(cfg, log, pols["ect"])
 
     # least time for the same work, over the real servers and the real
     # clients (those with a valid step; padding lanes and phantom clients
@@ -724,7 +1061,7 @@ def time_per_client(cfg, log, pols, dev, card):
           f"plain {merge_plain_ms:.2f} ms, bound {m_bound:.5f} ms ({m_by}: "
           f"{m_bytes} bytes, {m_ops} f32 ops)")
     reqs = cfg.n_trials * cfg.n_requests
-    print(f"  run_trials wall {wall_ms:.2f} ms "
+    print(f"  run_trials wall {wall_ms:.2f} ms, median of 5 "
           f"({reqs / wall_ms * 1e3:.0f} requests/s)")
     print(f"  stages  prep {stage_ms[0]:.2f} ms, sched {stage_ms[1]:.2f} ms"
           f" (the two kernels {kernels_ms:.4f} ms of it), post "
@@ -985,6 +1322,50 @@ def time_flash(dev, card):
     return first
 
 
+def time_ablate_split(cfg, log, pols, dev, card):
+    """The 1-D stream kernel's phase split for every engine policy at its
+    shared-log main-path operands: levels 0-3 by CUDA events, queued and
+    back to back (median of `steady_ms`; both include the wrapper's small
+    kernels), and the kernel alone by torch.profiler (`kernel_alone_ms`);
+    then the differences metrics = L0 - L1, steps = L1 - L2, plan = L2 -
+    L3, dispatch = L3, in ms and as shares of L0.  Returns {policy:
+    {"queued" | "back_to_back" | "kernel_alone": [L0..L3]}}."""
+    out = {}
+    print(f"stream kernel phase split, shared_log on {card}: ms per launch "
+          "by level, queued (back to back) [kernel alone], median of 5 "
+          "[range]; metrics = L0 - L1, steps = L1 - L2, plan = L2 - L3, "
+          "dispatch = L3 (share of L0):")
+    for p, pol in pols.items():
+        kargs, kkw = main_path_operands(cfg, log, pol, dev, "stream_batch")
+        q, b, k = [], [], []
+        for level in LEVELS:
+            kw = dict(kkw, ablate=level)
+
+            def call():
+                return skernel.sched_stream_call(*kargs, **kw)
+
+            q.append(steady_ms(queued_ms, call))
+            b.append(steady_ms(timed_ms, call))
+            k.append(kernel_alone_ms(call, "sched_stream_kernel"))
+        cells = [f"L{lv} {q[lv][0]:.4f} [{q[lv][1]:.4f}-{q[lv][2]:.4f}]"
+                 f"{held_note(q[lv])} ({b[lv][0]:.4f}) "
+                 + (f"[{k[lv]:.4f}]" if k[lv] is not None
+                    else "[not measured]") for lv in LEVELS]
+        print(f"  {p:>10s} ({launches_per_call(call)} kernels a call) "
+              + "; ".join(cells))
+        readings = {"queued": [x[0] for x in q],
+                    "back_to_back": [x[0] for x in b]}
+        if all(x is not None for x in k):
+            readings["kernel_alone"] = k
+        for tag, r in readings.items():
+            parts = (("metrics", r[0] - r[1]), ("steps", r[1] - r[2]),
+                     ("plan", r[2] - r[3]), ("dispatch", r[3]))
+            print(f"  {'':>10s} {tag}: " + ", ".join(
+                f"{n} {v:.4f} ({v / r[0]:.3f})" for n, v in parts))
+        out[p] = readings
+    return out
+
+
 def time_select(dev, card):
     """`sched_select` (minload) at C=16 streams of N=1024, M=100."""
     rng = np.random.default_rng(11)
@@ -1024,8 +1405,16 @@ def main() -> None:
         list(pool.map(_build.build, sources))
     print(f"built {', '.join(src.name for src in sources)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    stream_kernel_table()
     for src in sources:
-        for line in _build.build_log(src).splitlines():
+        lines = _build.build_log(src).splitlines()
+        if src == skernel.SOURCE:
+            # the stream kernel's instantiations are in the table above;
+            # the merge kernel's lines follow its "Compiling entry" line
+            k = next(i for i, line in enumerate(lines)
+                     if "Compiling entry" in line and "client_merge" in line)
+            lines = lines[k:k + 4]
+        for line in lines:
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas {src.name}: {line.strip()}")
@@ -1049,6 +1438,7 @@ def main() -> None:
                 err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
     err_merge = max(err_merge, check_merge_cases(dev))
     check_select(dev)
+    err_1d = max(err_1d, check_ablate(dev))
 
     # -- the main paths at the paper's §4 size -----------------------------
     pols = {p: PolicyConfig(name=p, threshold=0.05 if p == "ect" else 5.0)
@@ -1073,6 +1463,12 @@ def main() -> None:
     err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
     del results
 
+    # -- the profiling and tuning path -------------------------------------
+    tune_counts = run_tune_path(card)
+    check_launch_shapes((("shared_log", cfg, log),
+                         ("per_client", pc_cfg, pc_log)), pols)
+    run_tune_cli(card)
+
     # -- timing: the stream kernel per policy, the rest for ect -----------
     t_1d = time_shared_log(cfg, log, pols, dev, card)
     t_grid, t_merge = time_per_client(pc_cfg, pc_log, pols, dev, card)
@@ -1089,13 +1485,16 @@ def main() -> None:
     profile_serve(serve_args, serve_out["prefill_s"], card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
+    split = time_ablate_split(cfg, log, pols, dev, card)
 
     src = "src/repro_torch/kernels/sched_select/csrc/sched_stream.cu"
     ref = "src/repro/kernels/sched_select/kernel.py"
     print(json.dumps({"kernels": [
         dict(name="sched_stream", route="cuda", source=src,
              replaces=f"{ref}:130", launches=shared_counts["sched_stream"],
-             max_abs_err=err_1d, library_ms=None, **t_1d),
+             max_abs_err=err_1d, library_ms=None, **t_1d,
+             ablate_launches=tune_counts["sched_stream_ablate"],
+             levels_ms=split),
         dict(name="sched_stream_grid", route="cuda", source=src,
              replaces=f"{ref}:177",
              launches=pc_counts["sched_stream_grid"], max_abs_err=err_grid,
@@ -1116,4 +1515,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--walls"] and len(sys.argv) == 3:
+        compare_walls(Path(sys.argv[2]))
+    else:
+        main()

@@ -23,6 +23,7 @@ from repro_torch.core.policies import PolicyConfig, validate_policy
 from repro_torch.core.policy_core import F32, f32
 from repro_torch.core.statlog import LogConfig, SchedState
 from repro_torch.kernels.sched_select import ops as kops
+from repro_torch.tune import profile as tune_profile
 
 # Policies the trial-grid kernel schedules (the paper's §3.4 library).
 KERNEL_POLICIES = ("ect", "trh", "mlml", "nltr", "rr", "two_choice")
@@ -216,7 +217,8 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
                      window_size: int,
                      traces: Optional[ClusterTrace] = None,
                      window_dt: float = 0.0, observe: Optional[bool] = None,
-                     client_tile=None, stream_batch=kops.sched_stream_batch,
+                     trial_tile=None, client_tile=None, ablate: int = 0,
+                     stream_batch=kops.sched_stream_batch,
                      stream_grid=kops.sched_stream_grid):
     """A batch of windowed streams scheduled in one kernel launch.
 
@@ -227,8 +229,15 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     per-TRIAL `ClusterTrace`s, shared by a trial's clients.  Window ``w``
     opens at virtual time ``w * window_dt``; with a trace its rates are
     looked up there, and after the window the queues drain for
-    ``window_dt`` seconds.  ``client_tile`` (``(T, C)`` only) is the
-    cross-client merge's association width (see `ops.sched_stream_grid`).
+    ``window_dt`` seconds.  ``trial_tile`` is the stream kernel's warps
+    per block (a launch shape; None: the kernel's default).
+    ``client_tile`` (``(T, C)`` only) is the cross-client merge's
+    association width (see `ops.sched_stream_grid`).  ``ablate`` (``(T,)``
+    only) drops the kernel's trailing phases for the differential phase
+    profile (`repro_torch.tune.profile.kernel_phase_profile`); outputs
+    past the dropped phase are zeros, so a nonzero level is for timing.
+    The three stages run under `tune.profile.stage` ("engine_prep",
+    "kernel", "book"), inert unless a profile is collected.
 
     ``stream_batch`` / ``stream_grid`` schedule the ``(T,)`` / ``(T, C)``
     forms; the defaults are the kernel dispatch.  Passing
@@ -252,47 +261,54 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
             f"works carry batch axes {batch_shape} and states "
             f"{tuple(states.log.shape[:-2])}: both must be (T,) or (T, C)")
     two_d = len(batch_shape) == 2
+    if ablate and two_d:
+        raise ValueError("ablate profiling levels support the trial-grid "
+                         "(1-D) form only")
     if observe is None:
         observe = traces is not None
     r = works.object_ids.shape[-1]
     m = states.n_servers
-    n_win, obj, lens, val = _window_split(works, window_size)
-    (g_obj, g_lens, g_val), req_to_step = group_by_object_with_map(
-        Workload(obj, lens, val))
-    # rates are per trial: a trial's clients share its cluster
-    rate_states = states._replace(rates=states.rates[:, 0]) if two_d \
-        else states
-    win_rates = _window_rates(rate_states, traces, n_win, window_dt)
+    with tune_profile.stage("engine_prep"):
+        n_win, obj, lens, val = _window_split(works, window_size)
+        (g_obj, g_lens, g_val), req_to_step = group_by_object_with_map(
+            Workload(obj, lens, val))
+        # rates are per trial: a trial's clients share its cluster
+        rate_states = states._replace(rates=states.rates[:, 0]) if two_d \
+            else states
+        win_rates = _window_rates(rate_states, traces, n_win, window_dt)
     kw = dict(n_servers=m, window_size=window_size,
               threshold=policy.threshold, lam=log_cfg.lam,
               alpha=log_cfg.ewma_alpha, window_dt=window_dt,
               policy=policy.name, observe=observe, renorm=log_cfg.renorm,
-              nltr_n=policy.nltr_n, probe_choices=policy.probe_choices)
+              nltr_n=policy.nltr_n, probe_choices=policy.probe_choices,
+              trial_tile=trial_tile)
     steps = lambda x: x.reshape(batch_shape + (-1,))  # noqa: E731
     merged = None
-    if two_d:
-        (choices, lats, tables, wloads, metrics, cm_wl, cm_met, cm_lats,
-         cm_lval) = stream_grid(steps(g_obj), steps(g_lens), steps(g_val),
-                                states.log, seeds, win_rates,
-                                client_tile=client_tile, **kw)
-        merged = ClientMerge(window_loads_mean=cm_wl, metrics=cm_met,
-                             lats=cm_lats, lats_valid=cm_lval)
-    else:
-        choices, lats, tables, wloads, metrics = stream_batch(
-            steps(g_obj), steps(g_lens), steps(g_val), states.log, seeds,
-            win_rates, **kw)
-    # the bookkeeping runs over the flat T·C streams, each with its
-    # trial's last rates
-    rates_last = win_rates[:, -1]
-    if two_d:
-        rates_last = rates_last[:, None].expand(batch_shape + (m,))
-    flat = lambda x: x.flatten(0, len(batch_shape) - 1)  # noqa: E731
-    res = _kernel_bookkeeping(
-        SchedState(*map(flat, states)), flat(choices), flat(lats),
-        flat(tables), flat(wloads), flat(g_obj), flat(g_val), flat(val),
-        flat(req_to_step), flat(rates_last), policy=policy,
-        window_dt=window_dt, n_win=n_win, window_size=window_size, r=r)
-    unflat = lambda x: x.unflatten(0, batch_shape)  # noqa: E731
-    result = ScheduleResult(SchedState(*map(unflat, res.state)),
-                            *map(unflat, res[1:]))
+    with tune_profile.stage("kernel"):
+        if two_d:
+            (choices, lats, tables, wloads, metrics, cm_wl, cm_met, cm_lats,
+             cm_lval) = stream_grid(steps(g_obj), steps(g_lens),
+                                    steps(g_val), states.log, seeds,
+                                    win_rates, client_tile=client_tile, **kw)
+            merged = ClientMerge(window_loads_mean=cm_wl, metrics=cm_met,
+                                 lats=cm_lats, lats_valid=cm_lval)
+        else:
+            choices, lats, tables, wloads, metrics = stream_batch(
+                steps(g_obj), steps(g_lens), steps(g_val), states.log,
+                seeds, win_rates, ablate=ablate, **kw)
+    with tune_profile.stage("book"):
+        # the bookkeeping runs over the flat T·C streams, each with its
+        # trial's last rates
+        rates_last = win_rates[:, -1]
+        if two_d:
+            rates_last = rates_last[:, None].expand(batch_shape + (m,))
+        flat = lambda x: x.flatten(0, len(batch_shape) - 1)  # noqa: E731
+        res = _kernel_bookkeeping(
+            SchedState(*map(flat, states)), flat(choices), flat(lats),
+            flat(tables), flat(wloads), flat(g_obj), flat(g_val), flat(val),
+            flat(req_to_step), flat(rates_last), policy=policy,
+            window_dt=window_dt, n_win=n_win, window_size=window_size, r=r)
+        unflat = lambda x: x.unflatten(0, batch_shape)  # noqa: E731
+        result = ScheduleResult(SchedState(*map(unflat, res.state)),
+                                *map(unflat, res[1:]))
     return result, metrics, merged

@@ -20,6 +20,8 @@ operation.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.device import resolve_device
@@ -56,12 +58,19 @@ P99_BISECT_ITERS = 48  # float32 bisection steps
 BIG = 3.4e38           # padding-lane load: never selected, never drained
 
 F32 = torch.float32
+F32_MAX = torch.finfo(F32).max
 
 
 def f32(x, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar tensor on ``like``'s device (rounded once from the
-    Python double, as the reference's weakly typed scalars are)."""
-    return torch.tensor(x, dtype=F32, device=like.device)
+    Python double, as the reference's weakly typed scalars are).  Filled
+    on the device, so a CUDA scalar costs no blocking host copy."""
+    v = float(x)
+    if math.isfinite(v) and abs(v) > F32_MAX:
+        # torch.full refuses a finite double past float32's range, which
+        # the cast rounds to the largest float or to inf: round on the host
+        v = torch.tensor(v, dtype=F32).item()
+    return torch.full((), v, dtype=F32, device=like.device)
 
 
 def init_table(m: int, batch=None, device="cuda") -> torch.Tensor:

@@ -20,7 +20,8 @@ temporal straggler scenarios, under one of two client models:
   drawn from one ``torch.Generator``;
 * `_sched_trials` — every stream in ONE launch of the stream kernel, plus
   one of the cross-client merge under per_client
-  (`engine.run_stream_batch`);
+  (`engine.run_stream_batch`), with the tiles resolved once by
+  `repro_torch.tune.table.resolve_sim_tiles`;
 * `_post_trials`  — the per-trial `TrialResult` bookkeeping.
 
 The draws follow the reference's distributions, not its bits (the JAX
@@ -43,6 +44,8 @@ from repro_torch.core.policy_core import F32, f32
 from repro_torch.core.statlog import LogConfig, SchedState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sched_select import ops as kops
+from repro_torch.tune import profile as tune_profile
+from repro_torch.tune import table as tune_table
 
 SIZE_CLASSES = ("small", "medium", "large", "mixed")
 SCENARIOS = ("static", "permanent_slow", "transient", "flapping",
@@ -76,8 +79,14 @@ class SimConfig:
     """Paper §4 simulation parameters (defaults = the paper's numbers).
 
     ``client_tile`` is the association width of the per_client
-    cross-client merge (None = `policy_core.DEFAULT_CLIENT_TILE`).  The
-    reference's other dispatch knobs raise until their slice lands."""
+    cross-client merge (None = `policy_core.DEFAULT_CLIENT_TILE`).
+    ``trial_tile`` is the stream kernel's warps per block, a launch shape
+    on which no result depends (None = the kernel's default).  ``tiles``
+    picks how the pair resolves: "default" (the static resolvers),
+    "fused" (the reference's fused client block: the same client tile)
+    or "tuned" (the `repro_torch.tune` table's winner; a miss degrades to
+    "fused"); explicit tiles always win (`tune.table.resolve_sim_tiles`).
+    ``mesh_shape`` and ``prep`` raise until their slice lands."""
 
     n_servers: int = 100
     n_clients: int = 200
@@ -122,6 +131,14 @@ class SimConfig:
             raise ValueError(
                 f"client_tile={self.client_tile!r} must be a positive "
                 "client count per merge block (or None for the default)")
+        if self.trial_tile is not None and self.trial_tile < 1:
+            raise ValueError(
+                f"trial_tile={self.trial_tile!r} must be a positive count "
+                "of warps per block (or None for the kernel's default)")
+        if self.tiles not in tune_table.TILE_MODES:
+            raise ValueError(
+                f"tiles={self.tiles!r} must be one of "
+                f"{tune_table.TILE_MODES}")
         if self.backend == "jax":
             raise NotImplementedError(
                 "backend='jax' (the eager scan engine) waits for ROADMAP "
@@ -130,12 +147,10 @@ class SimConfig:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the sharded sweep waits "
                 "for ROADMAP Queue A10")
-        if (self.trial_tile is not None or self.tiles != "default"
-                or self.prep != "batched"):
+        if self.prep != "batched":
             raise NotImplementedError(
-                "the lowering knobs tiles/trial_tile/prep wait for ROADMAP "
-                "Queue A10 (the CUDA launch shape is not an association "
-                "parameter)")
+                f"prep={self.prep!r}: the sequential prep oracle waits for "
+                "ROADMAP Queue A10")
 
     @property
     def n_windows(self) -> int:
@@ -373,10 +388,21 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     real clients."""
     window_dt = (resolve_window_dt(cfg, cfg.scenario)
                  if cfg.scenario is not None else 0.0)
+    per_client = cfg.client_model == "per_client"
+    # THE tile resolution point: the pair is resolved once, whichever mode
+    # cfg.tiles selects, and threaded through every layer below
+    trial_tile, client_tile = tune_table.resolve_sim_tiles(
+        mode=cfg.tiles, policy=policy.name, backend=cfg.backend,
+        n_servers=cfg.n_servers, n_requests=cfg.n_requests,
+        n_clients=(cfg.n_clients if per_client else 1),
+        n_trials=cfg.n_trials, window_size=cfg.window_size,
+        form=("grid" if per_client else "batch"),
+        trial_tile=cfg.trial_tile, client_tile=cfg.client_tile)
     run = dict(policy=policy, log_cfg=log_cfg, traces=traces,
                window_dt=window_dt, observe=_observe(cfg),
-               stream_batch=stream_batch, stream_grid=stream_grid)
-    if cfg.client_model != "per_client":
+               trial_tile=trial_tile, stream_batch=stream_batch,
+               stream_grid=stream_grid)
+    if not per_client:
         res, metrics, _ = engine.run_stream_batch(
             states, works, seeds, window_size=cfg.window_size, **run)
         return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
@@ -395,7 +421,7 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
                               for x in states))
     res, _, merged = engine.run_stream_batch(
         run_states, run_works, seeds, window_size=win,
-        client_tile=cfg.client_tile, **run)
+        client_tile=client_tile, **run)
     cvalid = run_works.valid.any(dim=-1)                      # (T, C)
     probes = torch.where(cvalid, res.probe_msgs, 0).sum(
         dim=-1, dtype=torch.int32)
@@ -438,7 +464,8 @@ def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
                log_cfg: LogConfig, device="cuda") -> TrialResult:
     """Run ``cfg.n_trials`` independent trials: prep, one kernel launch
     for the whole sweep (and one of the cross-client merge under
-    per_client), post.
+    per_client), post.  The stages run under `tune.profile.stage`
+    ("prep", "sched", "post"), inert unless a profile is collected.
 
     ``generator_or_seed`` is a ``torch.Generator`` on ``device`` or an int
     seed for a fresh one.  ``device`` defaults to the card and raises if
@@ -449,10 +476,14 @@ def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
         gen = generator_or_seed
     else:
         gen = torch.Generator(device=dev).manual_seed(int(generator_or_seed))
-    init, strag_mask, works, states, traces, seeds = _prep_trials(
-        gen, cfg, log_cfg, dev)
-    sched = _sched_trials(cfg, policy, log_cfg, works, states, seeds, traces)
-    return _post_trials(cfg, init, strag_mask, works, traces, *sched)
+    with tune_profile.stage("prep"):
+        init, strag_mask, works, states, traces, seeds = _prep_trials(
+            gen, cfg, log_cfg, dev)
+    with tune_profile.stage("sched"):
+        sched = _sched_trials(cfg, policy, log_cfg, works, states, seeds,
+                              traces)
+    with tune_profile.stage("post"):
+        return _post_trials(cfg, init, strag_mask, works, traces, *sched)
 
 
 def default_log_cfg(cfg: SimConfig, lam: Optional[float] = None) -> LogConfig:

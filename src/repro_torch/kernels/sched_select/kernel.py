@@ -36,15 +36,25 @@ MAX_M_PAD = 1024
 # and four to a block and rr, the shortest chain, ran faster at one, each
 # stream then alone on an SM; the 2-D form reads level at four and eight.
 WARPS_PER_BLOCK = {"sched_stream": 1, "sched_stream_grid": 4}
+# the source's MAX_WARPS_PER_BLOCK: a launch takes 1 to 8 warps a block
+MAX_WARPS_PER_BLOCK = 8
 # Lanes per stream, by form: the 1-D form's long streams take a whole warp
 # each; the 2-D form's short ones share a warp two to one, 16 lanes each,
 # so the per-request scalar work every lane repeats serves two streams.
 LANES_PER_STREAM = {"sched_stream": 32, "sched_stream_grid": 16}
 
+# The ablate levels of the 1-D form (the reference's sched_stream_call
+# ablate=), cumulative: 0 the full kernel, 1 no fused metrics, 2 also no
+# per-request step loop, 3 also no window-start plan.  Outputs past the
+# dropped phase are zeros.
+ABLATE_LEVELS = (0, 1, 2, 3)
+
 # Launches in this process, by kernel form (reset by callers that count):
-# the stream kernel over trials (1-D) or over trials x clients (2-D), and
-# the cross-client merge.
-LAUNCHES = {"sched_stream": 0, "sched_stream_grid": 0, "client_merge": 0}
+# the stream kernel over trials (1-D) at its full level or at an ablate
+# level above 0 (timing only), over trials x clients (2-D), and the
+# cross-client merge.
+LAUNCHES = {"sched_stream": 0, "sched_stream_ablate": 0,
+            "sched_stream_grid": 0, "client_merge": 0}
 
 _LIB = None
 
@@ -55,7 +65,7 @@ def _library():
         lib = _build.load(SOURCE)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sched_stream_launch.argtypes = (
-            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 8 + [ptr])
+            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 9 + [ptr])
         lib.sched_stream_launch.restype = ctypes.c_int
         lib.sched_stream_occupancy.argtypes = (
             [i32] * 6 + [ctypes.POINTER(i32)] * 3)
@@ -87,6 +97,20 @@ def _check(name: str, x: torch.Tensor, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def clamp_warps(trial_tile) -> int:
+    """``trial_tile`` as warps per block: clamped to [1,
+    `MAX_WARPS_PER_BLOCK`].  A launch shape only: no result depends on it
+    (the launch clamps it further to the shared-memory budget)."""
+    return max(min(int(trial_tile), MAX_WARPS_PER_BLOCK), 1)
+
+
+def resolve_warps(form: str, trial_tile=None) -> int:
+    """Warps per block of the stream kernel's launch in ``form``: the
+    form's `WARPS_PER_BLOCK`, or ``trial_tile`` by `clamp_warps`."""
+    return WARPS_PER_BLOCK[form] if trial_tile is None \
+        else clamp_warps(trial_tile)
+
+
 def _raise_on(code: int, what: str) -> None:
     if code != 0:
         msg = _library().sched_stream_error_string(code).decode()
@@ -97,13 +121,16 @@ def _raise_on(code: int, what: str) -> None:
 def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
                     form, lead, n_servers, window_size, threshold, lam, alpha,
                     window_dt, policy, observe, renorm, nltr_n=2,
-                    probe_choices=2):
+                    probe_choices=2, trial_tile=None, ablate=0):
     """Check the operands and launch the stream kernel over the streams of
     the leading shape ``lead`` ((T,) or (T, C)), with the launch shape of
-    ``form`` (a `LAUNCHES` key); win_rates carry the trial axis only.
+    ``form`` (a `LAUNCHES` key; ``trial_tile`` as `resolve_warps`) at the
+    ablate level ``ablate``; win_rates carry the trial axis only.
     Returns the five per-stream outputs."""
     if policy not in POLICY_CODES:
         raise ValueError(f"policy must be one of {tuple(POLICY_CODES)}")
+    if ablate not in ABLATE_LEVELS:
+        raise ValueError(f"ablate={ablate!r} must be one of {ABLATE_LEVELS}")
     n = object_ids.shape[-1]
     m_pad = tables.shape[-1]
     n_win = win_rates.shape[1]
@@ -151,8 +178,8 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
             POLICY_CODES[policy], float(threshold), float(lam), float(alpha),
             float(1 - alpha), float(window_dt), int(bool(window_dt)),
             int(observe), int(renorm), int(nltr_n), int(probe_choices),
-            n_streams // lead[0], WARPS_PER_BLOCK[form],
-            LANES_PER_STREAM[form], stream)
+            n_streams // lead[0], resolve_warps(form, trial_tile),
+            LANES_PER_STREAM[form], int(ablate), stream)
     _raise_on(code, "sched_stream")
     return choices, lats, ftab, wloads, metrics
 
@@ -163,23 +190,27 @@ def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
                       n_servers: int, window_size: int, threshold: float,
                       lam: float, alpha: float, window_dt: float, policy: str,
                       observe: bool, renorm: bool, nltr_n: int = 2,
-                      probe_choices: int = 2):
+                      probe_choices: int = 2, trial_tile=None,
+                      ablate: int = 0):
     """Launch the stream kernel on the current CUDA stream.
 
     object_ids/lengths/valid: (T, N) int32/float32/int32 with
     N = W * window_size; tables: (T, 4, M_pad) float32; seeds: (T,) uint32
     states in any integer dtype; win_rates: (T, W, M_pad) float32 true
-    rates.  Returns (choices (T, N) int32, latencies (T, N) float32,
-    final_tables (T, 4, M_pad), window_loads (T, W, M_pad), metrics
-    (T, MET_PAD) float32 in `policy_core.MET_*` lane order)."""
+    rates.  ``trial_tile``: warps per block (`resolve_warps`).
+    ``ablate``: one of `ABLATE_LEVELS`; above 0 the launch is for timing
+    and counts under ``LAUNCHES["sched_stream_ablate"]``.  Returns
+    (choices (T, N) int32, latencies (T, N) float32, final_tables
+    (T, 4, M_pad), window_loads (T, W, M_pad), metrics (T, MET_PAD)
+    float32 in `policy_core.MET_*` lane order)."""
     out = _launch_streams(
         object_ids, lengths, valid, tables, seeds, win_rates,
         form="sched_stream", lead=tuple(object_ids.shape[:1]),
         n_servers=n_servers, window_size=window_size, threshold=threshold,
         lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
         observe=observe, renorm=renorm, nltr_n=nltr_n,
-        probe_choices=probe_choices)
-    LAUNCHES["sched_stream"] += 1
+        probe_choices=probe_choices, trial_tile=trial_tile, ablate=ablate)
+    LAUNCHES["sched_stream_ablate" if ablate else "sched_stream"] += 1
     return out
 
 
@@ -190,8 +221,13 @@ def sched_stream_grid_streams(object_ids: torch.Tensor,
     """The per-stream half of `sched_stream_grid_call`: the stream kernel
     over the T·C streams, each reading its trial's win_rates row.
     object_ids/lengths/valid (T, C, N), tables (T, C, 4, M_pad), seeds
-    (T, C), win_rates (T, W, M_pad); keywords as `sched_stream_call`.
-    Returns the five per-stream outputs with leading (T, C)."""
+    (T, C), win_rates (T, W, M_pad); keywords as `sched_stream_call`,
+    ``trial_tile`` the warps per block (two streams a warp); ``ablate``
+    above 0 raises, as in the reference.  Returns the five per-stream
+    outputs with leading (T, C)."""
+    if kw.get("ablate"):
+        raise ValueError("ablate profiling levels support the trial-grid "
+                         "(1-D) form only")
     out = _launch_streams(object_ids, lengths, valid, tables, seeds,
                           win_rates, form="sched_stream_grid",
                           lead=tuple(object_ids.shape[:2]), **kw)
@@ -200,16 +236,18 @@ def sched_stream_grid_streams(object_ids: torch.Tensor,
 
 
 def stream_occupancy(form: str, policy: str, n_servers: int, m_pad: int,
-                     window_size: int) -> tuple:
+                     window_size: int, trial_tile=None) -> tuple:
     """(blocks per SM, streams per block, dynamic shared memory bytes) of
-    the stream kernel's launch in ``form`` for this policy and shape, as
-    the CUDA runtime reports them for the current card."""
+    the stream kernel's level-0 launch in ``form`` for this policy and
+    shape (``trial_tile`` as `resolve_warps`), as the CUDA runtime reports
+    them for the current card."""
     i32 = ctypes.c_int
     blocks, streams, smem = i32(), i32(), i32()
     _raise_on(_library().sched_stream_occupancy(
         POLICY_CODES[policy], n_servers, m_pad, window_size,
-        WARPS_PER_BLOCK[form], LANES_PER_STREAM[form], ctypes.byref(blocks),
-        ctypes.byref(streams), ctypes.byref(smem)), "sched_stream occupancy")
+        resolve_warps(form, trial_tile), LANES_PER_STREAM[form],
+        ctypes.byref(blocks), ctypes.byref(streams), ctypes.byref(smem)),
+        "sched_stream occupancy")
     return blocks.value, streams.value, smem.value
 
 

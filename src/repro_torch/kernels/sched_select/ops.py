@@ -79,17 +79,24 @@ def _run(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
          threshold: float = 0.0, lam: float = 32.0, alpha: float = 0.25,
          window_dt: float = 0.0, policy: str = "ect", observe: bool = True,
          renorm: bool = True, nltr_n: int = 2, probe_choices: int = 2,
-         **merge):
-    """Pad, run ``fn``, slice the padding off.  ``merge`` holds the 2-D
-    form's ``client_tile`` and ``merge_mean`` (see `_run_grid`)."""
+         trial_tile=None, ablate: int = 0, **merge):
+    """Pad, run ``fn``, slice the padding off.  ``trial_tile`` is the
+    kernel's warps per block (a launch shape: `kernel.resolve_warps`),
+    ``ablate`` one of `kernel.ABLATE_LEVELS` (the 1-D form only);
+    ``merge`` holds the 2-D form's ``client_tile`` and ``merge_mean`` (see
+    `_run_grid`)."""
     _check_policy(policy, n_servers, nltr_n)
+    if ablate and merge:
+        raise ValueError("ablate profiling levels support the trial-grid "
+                         "(1-D) form only")
     m = tables.shape[-1]
     out = fn(
         *pad_operands(object_ids, lengths, valid, tables, seeds, win_rates),
         n_servers=n_servers, window_size=window_size, threshold=threshold,
         lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
         observe=observe, renorm=renorm, nltr_n=nltr_n,
-        probe_choices=probe_choices, **merge)
+        probe_choices=probe_choices, trial_tile=trial_tile, ablate=ablate,
+        **merge)
     choices, lats, ftab, wloads, metrics = out[:5]
     per_stream = (choices, lats, ftab[..., :m], wloads[..., :m],
                   metrics[..., :N_METRICS])
@@ -108,10 +115,11 @@ def sched_stream_batch(object_ids: torch.Tensor, *args, **kw):
     states (any integer dtype); win_rates: (T, W, M) true per-window
     rates; then the keyword parameters of `_run` (``n_servers``,
     ``window_size``, ``threshold``, ``lam``, ``alpha``, ``window_dt``,
-    ``policy``, ``observe``, ``renorm``, ``nltr_n``, ``probe_choices``),
-    whose defaults live there once.  Returns (choices (T, N) int32,
-    latencies (T, N), final_tables (T, 4, M), window_loads (T, W, M),
-    metrics (T, N_METRICS) in `policy_core.MET_*` order).
+    ``policy``, ``observe``, ``renorm``, ``nltr_n``, ``probe_choices``,
+    ``trial_tile``, ``ablate``), whose defaults live there once.
+    Returns (choices (T, N) int32, latencies (T, N), final_tables
+    (T, 4, M), window_loads (T, W, M), metrics (T, N_METRICS) in
+    `policy_core.MET_*` order).
 
     A CUDA tensor goes through the CUDA kernel, which raises if it cannot
     run; a CPU tensor goes through the plain PyTorch version."""
@@ -139,14 +147,14 @@ def sched_stream_grid(object_ids: torch.Tensor, *args, **kw):
     phantom and is masked out of every merge); tables: (T, C, 4, M);
     seeds: (T, C) uint32 states; win_rates: (T, W, M) per trial (a
     trial's clients share its trace); then the keywords of
-    `sched_stream_batch`, plus ``client_tile`` (the merge's
-    association width, resolved by `resolve_client_tile`) and
-    ``merge_mean``.  Returns (choices (T, C, N) int32, latencies
-    (T, C, N), final_tables (T, C, 4, M), window_loads (T, C, W, M),
-    metrics (T, C, N_METRICS), cm_wloads (T, W, M) — the masked client
-    mean, or the raw masked sum when ``merge_mean`` is False — cm_metrics
-    (T, N_CMETRICS), cm_lats (T, C, N) masked latencies, cm_lval
-    (T, C, N) 0/1 validity).
+    `sched_stream_batch` (``ablate`` above 0 raises), plus
+    ``client_tile`` (the merge's association width, resolved by
+    `resolve_client_tile`) and ``merge_mean``.  Returns (choices
+    (T, C, N) int32, latencies (T, C, N), final_tables (T, C, 4, M),
+    window_loads (T, C, W, M), metrics (T, C, N_METRICS), cm_wloads
+    (T, W, M) — the masked client mean, or the raw masked sum when
+    ``merge_mean`` is False — cm_metrics (T, N_CMETRICS), cm_lats
+    (T, C, N) masked latencies, cm_lval (T, C, N) 0/1 validity).
 
     A CUDA tensor goes through the CUDA kernels, which raise if they
     cannot run; a CPU tensor goes through the plain PyTorch version."""

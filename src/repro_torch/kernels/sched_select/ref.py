@@ -11,6 +11,10 @@ updates, the latency and the EWMA/est feedback, then at window close the
 at the end the fused metrics row.  It mirrors the JAX package's
 ``kernels/sched_select/ref.py`` and its Pallas kernel body.
 
+``ablate`` drops the same trailing phases as the kernel's ablate levels
+(1 no fused metrics, 2 also no per-request step loop, 3 also no
+window-start plan), with the same zeros past the dropped phase.
+
 `sched_stream_grid_ref` is the 2-D (trials x clients) form: the same
 per-stream function over the T·C streams, each reading its trial's rates,
 then `client_merge_ref`, the plain version of the ``client_merge`` kernel
@@ -35,6 +39,7 @@ from repro_torch.core.policy_core import (BIG, F32, MET_N_VALID, MET_PAD,
                                           permute_to_sorted, rank_desc,
                                           recursive_average_bounds,
                                           stream_metrics, window_decrements)
+from repro_torch.kernels.sched_select.kernel import ABLATE_LEVELS
 
 SORT_POLICIES = ("mlml", "nltr")
 PLAN_POLICIES = ("trh", "mlml", "nltr")
@@ -52,12 +57,20 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
                            lam: float, alpha: float = 0.25,
                            window_dt: float = 0.0, policy: str = "ect",
                            observe: bool = True, renorm: bool = True,
-                           nltr_n: int = 2, probe_choices: int = 2):
+                           nltr_n: int = 2, probe_choices: int = 2,
+                           trial_tile=None, ablate: int = 0):
     """Same operands and outputs as `kernel.sched_stream_call`, on any
     device: object_ids/lengths/valid (T, N), tables (T, 4, M_pad), seeds
     (T,) uint32 states in any integer dtype, win_rates (T, W, M_pad).
+    ``trial_tile`` is the kernel's launch shape and changes nothing here;
+    ``ablate`` as the kernel's levels: past the dropped phase the metric
+    row (level >= 1) and the choices and latencies (level >= 2) are zeros,
+    and without the step loop the tables only renormalise and drain.
     Returns (choices (T, N) int32, latencies (T, N), final_tables
     (T, 4, M_pad), window_loads (T, W, M_pad), metrics (T, MET_PAD))."""
+    if ablate not in ABLATE_LEVELS:
+        raise ValueError(f"ablate={ablate!r} must be one of {ABLATE_LEVELS}")
+    do_metrics, do_steps, do_plan = ablate < 1, ablate < 2, ablate < 3
     m = n_servers
     t, n = object_ids.shape
     m_pad = tables.shape[-1]
@@ -101,10 +114,10 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
         obj_w = object_ids[:, start:start + ws].to(torch.int64)
         len_w = lengths[:, start:start + ws]
         val_w = valid_b[:, start:start + ws]
-        if policy in PLAN_POLICIES:
+        if policy in PLAN_POLICIES and do_plan:
             rank_srv, _ = rank_desc(probs, valid=lv_t)
             (order_srv,) = permute_to_sorted(rank_srv, (lane_t,))
-        if sort_policy:
+        if sort_policy and do_plan:
             rank_req, mkeys = rank_desc(len_w, valid=val_w)
             obj_p, len_p, val_p = permute_to_sorted(rank_req,
                                                     (obj_w, len_w, val_w))
@@ -117,7 +130,7 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
         ch_acc = torch.zeros((t, ws), dtype=torch.int64, device=dev)
         lat_acc = torch.zeros((t, ws), dtype=F32, device=dev)
 
-        for j in range(ws):
+        for j in range(ws if do_steps else 0):
             obj = obj_p[:, j]
             ln = len_p[:, j:j + 1]
             v = val_p[:, j:j + 1]
@@ -208,7 +221,7 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
             ch_acc[:, j] = choose
             lat_acc[:, j] = latv[:, 0]
 
-        if sort_policy:
+        if sort_policy and do_steps:
             ch_acc, lat_acc = permute_from_sorted(rank_req, (ch_acc, lat_acc))
         choices[:, start:start + ws] = ch_acc.to(torch.int32)
         lats[:, start:start + ws] = lat_acc
@@ -226,7 +239,8 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
     final = torch.stack([torch.where(lv, row, zero)
                          for row in (loads, probs, ewma, est)], dim=1)
     metrics = torch.zeros((t, MET_PAD), dtype=F32, device=dev)
-    metrics[:, :N_METRICS] = stream_metrics(lats, valid_b, window_dt, ws)
+    if do_metrics:
+        metrics[:, :N_METRICS] = stream_metrics(lats, valid_b, window_dt, ws)
     return choices, lats, final, wloads, metrics
 
 

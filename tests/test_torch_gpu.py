@@ -14,6 +14,7 @@ it runs where JAX is not installed:
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -235,6 +236,130 @@ def test_sched_select_on_card_matches_plain(policy, cuda_device):
     assert tkernel.LAUNCHES["sched_stream"] == before + 1
     want = tops.sched_select_plain(*args, **kw)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the ablate levels (1-D form only): a few streams, and T above the SMs
+ABLATE_CASES = [(5, 37, 4, 32), (140, 37, 2, 16)]
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("policy", tops.POLICIES)
+@pytest.mark.parametrize("case", ABLATE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_cuda_ablate_levels_match_plain_on_card(case, policy, level,
+                                                cuda_device):
+    """An ablated launch against the plain version at the same level:
+    every output bit for bit, the zeros past the dropped phase included;
+    it counts as an ablated launch, never as the main path's."""
+    t, m, n_win, win = case
+    arrays = batch_case(t, m, n_win, win, seed=4000 + t)
+    kw = dict(KW, n_servers=m, window_size=win, policy=policy, ablate=level)
+    before = dict(tkernel.LAUNCHES)
+    got = port_batch(arrays, cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES == dict(
+        before, sched_stream_ablate=before["sched_stream_ablate"] + 1)
+    want = port_batch(arrays, cuda_device, fn=tops.sched_stream_batch_plain,
+                      **kw)
+    for name, a, b in zip(("choices", "latencies", "final_tables",
+                           "window_loads", "metrics"), got, want):
+        np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32),
+                                      err_msg=f"{policy} {level} {name}")
+    assert not got[4].any() and (level < 2 or not (got[0].any()
+                                                   or got[1].any()))
+
+
+def test_cuda_ablate_level_zero_and_refusals(cuda_device):
+    """Level 0 is the unablated launch; the 2-D form refuses a level, in
+    the wrapper and in the C entry (which also refuses a level past 3)."""
+    t, m, n_win, win = 5, 37, 4, 32
+    arrays = batch_case(t, m, n_win, win, seed=9)
+    kw = dict(KW, n_servers=m, window_size=win, policy="nltr")
+    for a, b in zip(port_batch(arrays, cuda_device, ablate=0, **kw),
+                    port_batch(arrays, cuda_device, **kw)):
+        np.testing.assert_array_equal(a, b)
+    garrays = grid_case(2, 3, m, n_win, win, 1, seed=9)
+    with pytest.raises(ValueError, match="1-D"):
+        port_batch(garrays, cuda_device, fn=tops.sched_stream_grid,
+                   ablate=1, **kw)
+    obj, lens, valid, tables, seeds, rates = (
+        torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32 else x)
+        .to(cuda_device) for x in garrays)
+    operands = tops.pad_operands(obj, lens, valid, tables, seeds, rates)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        tkernel._launch_streams(*operands, form="sched_stream_grid",
+                                lead=(2, 3), ablate=1, alpha=0.25, **kw)
+
+
+@pytest.mark.parametrize("policy", ["ect", "mlml", "nltr", "trh", "rr",
+                                    "two_choice"])
+def test_trial_tile_is_a_launch_shape_on_card(policy, cuda_device):
+    """run_trials with trial_tile (the stream kernel's warps per block)
+    in 1, 2, 4, 8 equals the default launch, field for field, under the
+    shared log and per_client."""
+    pol = PolicyConfig(name=policy, threshold=0.05 if policy == "ect"
+                       else 5.0)
+    scn = simulate.ScenarioConfig("transient")
+    for cfg in (simulate.SimConfig(n_servers=37, n_requests=250, n_trials=9,
+                                   window_size=60, scenario=scn),
+                simulate.SimConfig(n_servers=37, n_requests=250, n_trials=3,
+                                   n_clients=25, window_size=10,
+                                   client_model="per_client",
+                                   scenario=scn)):
+        log = simulate.default_log_cfg(cfg)
+        base = simulate.run_trials(3, cfg, pol, log)
+        for tt in (1, 2, 4, 8):
+            res = simulate.run_trials(
+                3, dataclasses.replace(cfg, trial_tile=tt), pol, log)
+            for f in res._fields:
+                assert torch.equal(getattr(res, f), getattr(base, f)), (
+                    policy, cfg.client_model, tt, f)
+
+
+def test_stream_wrappers_do_not_synchronize(cuda_device):
+    """The stream kernels' wrappers queue their work and return: no call
+    in them waits for the card (torch's sync debug mode raises on one)."""
+    t, m, n_win, win = 5, 37, 4, 32
+    kw = dict(KW, n_servers=m, window_size=win, policy="ect")
+    ops_in = [torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32
+                               else x).to(cuda_device)
+              for x in batch_case(t, m, n_win, win, seed=12)]
+    call_in = tops.pad_operands(*ops_in)
+    g_in = [torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32
+                             else x).to(cuda_device)
+            for x in grid_case(2, 5, m, 2, 8, 1, seed=12)]
+    gkw = dict(kw, window_size=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tkernel.sched_stream_call(*call_in, alpha=0.25, **kw)
+        tkernel.sched_stream_call(*call_in, alpha=0.25, ablate=2, **kw)
+        tops.sched_stream_batch(*ops_in, **kw)
+        tops.sched_stream_grid(*g_in, client_tile=2, **gkw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_tune_cli_on_card_names_the_card(tmp_path, cuda_device):
+    """`python -m repro_torch.tune --tune batch_ect` writes its winner with
+    the card's name and power limit into the table it is pointed at."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    path = tmp_path / "TUNE.json"
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    subprocess.run([sys.executable, "-m", "repro_torch.tune", "--tune",
+                    "batch_ect", "--reps", "1", "--path", str(path)],
+                   check=True, env=env, timeout=600)
+    entries = json.loads(path.read_text())["entries"]
+    (key, entry), = entries.items()
+    assert "policy=ect" in key and "form=batch" in key
+    assert entry["card"] == torch.cuda.get_device_name(0)
+    assert entry["power_limit"] and entry["trial_tile"] in (1, 2, 4, 8)
 
 
 # the kernel's own shapes beyond the JAX tests' cases: gemma-2b's head

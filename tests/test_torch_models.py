@@ -29,11 +29,13 @@ import torch
 
 from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
+from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as tserve
+from repro_torch.models import attention as TA
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import make_prefill_step
@@ -177,6 +179,52 @@ def test_decode_matches_train(arch):
                                    tcfg)
         outs.append(lg)
     assert _err(torch.cat(outs, dim=1), ref) < F32_TOL
+
+
+def test_decode_attend_masks_ring_slots_past_the_window():
+    """A ring with more slots than the sliding window (``init_kv_cache``
+    with ``size`` > ``sliding_window``, which ``cache_size_for`` never
+    builds): the slots older than the window must be masked.  The port's
+    ``decode_attend`` against the JAX package's on the same cache, weights
+    and token; without the mask the output moves far past the tolerance."""
+    _, jparams, tcfg, tparams, _ = _setup("h2o-danube-3-4b", "float32")
+    jcfg = _jax_cfg("h2o-danube-3-4b", compute_dtype="float32")
+    win = tcfg.sliding_window
+    size = win + 8
+    pos = 2 * size + 3           # the ring holds pos - size .. pos - 1
+    rng = np.random.default_rng(5)
+    shape = (B, size, tcfg.n_kv_heads, tcfg.hd)
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in "kv")
+    first = pos - size
+    slot_pos = np.array([first + (s - first) % size for s in range(size)],
+                        np.int32)
+    x1 = rng.standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
+
+    def port_cache():
+        cache = TA.init_kv_cache(tcfg, B, size, device="cpu")
+        cache.update(k=torch.from_numpy(k.copy()),
+                     v=torch.from_numpy(v.copy()),
+                     slot_pos=torch.from_numpy(slot_pos.copy()))
+        return cache
+
+    jcache = dict(JA.init_kv_cache(jcfg, B, size), k=jnp.asarray(k),
+                  v=jnp.asarray(v), slot_pos=jnp.asarray(slot_pos))
+    jp = jax.tree.map(lambda a: a[0], jparams["groups"]["pos_0"]["attn"])
+    want, wcache = JA.decode_attend(jp, jnp.asarray(x1), jcache,
+                                    jnp.int32(pos), jcfg)
+    got, gcache = TA.decode_attend(tparams.blocks[0].attn,
+                                   torch.from_numpy(x1), port_cache(), pos,
+                                   tcfg)
+    assert _err(got, want) < F32_TOL
+    for name in ("k", "v", "slot_pos"):
+        np.testing.assert_array_equal(gcache[name].numpy(),
+                                      np.asarray(wcache[name]))
+    # the new token took the oldest slot; size - win slots lie past the window
+    assert int((pos - gcache["slot_pos"] >= win).sum()) == size - win
+    unmasked, _ = TA.decode_attend(
+        tparams.blocks[0].attn, torch.from_numpy(x1), port_cache(), pos,
+        dataclasses.replace(tcfg, sliding_window=None))
+    assert _err(unmasked, want) > 100 * F32_TOL
 
 
 @functools.lru_cache(maxsize=None)

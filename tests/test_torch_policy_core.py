@@ -154,3 +154,32 @@ def test_lcg():
         for n in (1, 7, 50, 100):
             np.testing.assert_array_equal(_np(tpc.lcg_mod(t, n)),
                                           np.asarray(jpc.lcg_mod(j, n)))
+
+
+# the doubles the port rounds to float32 scalars: small and subnormal
+# values, float32's largest finite values and doubles past its range
+# (which round to its largest value or to inf), signed zeros and
+# infinities, and the window_dt and lam of the paper's §4 configuration
+# under the transient scenario
+F32_DOUBLES = [0.1, 1e-6, 1e-9, 1 / 3, 1e-40, 1.4e-45, 1e-46, 1e-310,
+               float(np.finfo(np.float32).max), 3.4e38, 3.40282356e38,
+               3.4028235677973366e38, 1e39, -1e39, 1e300, 0.0, -0.0,
+               float("inf"), float("-inf"), 5, 99]
+
+
+def test_f32_scalar_equals_the_copied_scalar():
+    """`f32` fills its scalar on the device (no blocking host copy); the
+    value is the float32 that `torch.tensor` would have copied, bit for
+    bit."""
+    from repro_torch.core import simulate as tsim
+
+    cfg = tsim.SimConfig(scenario=tsim.ScenarioConfig("transient"))
+    doubles = F32_DOUBLES + [tsim.resolve_window_dt(cfg, cfg.scenario),
+                             tsim.default_log_cfg(cfg).lam]
+    like = torch.zeros(1)
+    for x in doubles:
+        got = tpc.f32(x, like)
+        want = torch.tensor(x, dtype=torch.float32)
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert got.view(torch.int32).item() == want.view(torch.int32).item(), x
+    assert tpc.f32(float("nan"), like).isnan()
