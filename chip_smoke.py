@@ -48,7 +48,18 @@ arguments it
    shared log, and the same sweep per_client (200 clients, window 10
    after the clamp), each for the six engine policies, every
    `TrialResult` field held against the same prep scheduled by the plain
-   versions on the card; then the profiling and tuning path
+   versions on the card; then the same two sweeps on the eager engine
+   (``SimConfig(backend="jax")``, ``PolicyConfig(rng="lcg")`` for trh,
+   nltr and two_choice) with the counts zeroed before and read after (no
+   launch of any of the port's kernels), every `TrialResult` field held
+   bit for bit against the kernel path's on the same seed and
+   `core.analysis`'s load balance, straggler summary, both p99s and
+   makespan printed for both; the sequential kernel path
+   (`engine.run_stream(backend="kernel")`, one stream kernel launch per
+   call) on three single trials per policy against those trials' rows of
+   `run_stream_batch`; the eager and kernel `run_trials` walls for ect
+   (medians of 3) and the device's busy share of one eager run
+   (torch.profiler); then the profiling and tuning path
    (`repro_torch.tune`): `kernel_phase_profile` for ect at the same size
    (its launches counted: level 0 and the ablate levels, nothing else),
    `run_trials` with the stream kernel's warps per block at 1, 2, 4 and 8
@@ -105,7 +116,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import policy_core, simulate  # noqa: E402
+from repro_torch.core import analysis, engine, policy_core  # noqa: E402
+from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core.engine import KERNEL_POLICIES  # noqa: E402
 from repro_torch.core.policies import PolicyConfig  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -811,6 +823,172 @@ def run_tune_cli(card):
     print(f"tune CLI on {card}: {key} -> {json.dumps(entry, sort_keys=True)}")
 
 
+# -- the eager engine ----------------------------------------------------------
+
+
+def eager_pols(pols):
+    """The engine policies with the LCG as the eager engine's randomness
+    (the parity setting; the kernel path ignores ``rng``)."""
+    return {p: dataclasses.replace(pol, rng="lcg") for p, pol in pols.items()}
+
+
+def differing(got, want):
+    return [f for f, a, b in zip(got._fields, got, want)
+            if not (a.shape == b.shape and a.dtype == b.dtype
+                    and torch.equal(a, b))]
+
+
+def run_eager_path(name, cfg, log, pols, kernel_results):
+    """`run_trials(backend="jax")` for every policy on the seed of the
+    kernel path's runs, the launch counts zeroed just before and read just
+    after: the eager engine launches none of the port's kernels, and every
+    `TrialResult` field must equal the kernel path's bit for bit.
+    Returns (results, launch counts)."""
+    ecfg = dataclasses.replace(cfg, backend="jax")
+    results = {}
+    zero_counts()
+    for p, pol in eager_pols(pols).items():
+        results[p] = simulate.run_trials(0, ecfg, pol, log)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if any(counts.values()):
+        fail(f"{name} eager engine launched {counts}, expected none")
+    for p, res in results.items():
+        bad = differing(res, kernel_results[p])
+        if bad:
+            fail(f"{name} {p}: backend='jax' differs from backend='kernel' "
+                 f"in {bad}")
+    print(f"eager engine, {name}: run_trials(backend='jax') for "
+          f"{', '.join(results)} (rng='lcg'): launches {counts}; every "
+          "TrialResult field bit-identical to backend='kernel'")
+    return results, counts
+
+
+def print_analysis(name, eager, kernel, card):
+    """`core.analysis` of both backends' results: load balance, straggler
+    summary, both p99s and the makespan, which must be equal."""
+    for p in eager:
+        figs = {}
+        for backend, res in (("jax", eager[p]), ("kernel", kernel[p])):
+            figs[backend] = (analysis.load_balance_stats(res.server_loads),
+                             analysis.straggler_summary(res),
+                             analysis.latency_stats(res.latencies),
+                             analysis.makespan(res))
+        if figs["jax"] != figs["kernel"]:
+            fail(f"{name} {p}: the backends' analysis figures differ")
+        lb, ss, ls, mk = figs["jax"]
+        print(f"  analysis {name} {p:>10s} on {card} (both backends): cv "
+              f"{lb['cv']:.6f}, jain {lb['jain']:.6f}, straggler hit "
+              f"fraction {ss['hit_fraction']:.6f}, p99 {ls['p99']:.6f} s, "
+              f"p99_nearest {ls['p99_nearest']:.6f} s, makespan {mk:.6f} s")
+
+
+def check_sequential_kernel(cfg, log, pols, dev, trials=(0, 1, 99)):
+    """`engine.run_stream(backend="kernel")` on single trials of the §4
+    shared-log prep: one launch of the stream kernel per call, and every
+    field of its `ScheduleResult` equal to that trial's row of
+    `run_stream_batch` on the same prep.  Returns the calls' launches."""
+    _, _, works, states, traces, seeds = prep(cfg, log, dev)
+    kw = dict(log_cfg=log, window_size=cfg.window_size,
+              window_dt=simulate.resolve_window_dt(cfg, cfg.scenario),
+              observe=simulate._observe(cfg))
+    launches = 0
+    for p, pol in pols.items():
+        batch, _, _ = engine.run_stream_batch(states, works, seeds,
+                                              traces=traces, policy=pol,
+                                              **kw)
+        for i in trials:
+            row = lambda x: x[i]  # noqa: E731
+            before = skernel.LAUNCHES["sched_stream"]
+            one = engine.run_stream(
+                type(states)(*map(row, states)), type(works)(*map(row, works)),
+                seeds[i], trace=type(traces)(*map(row, traces)),
+                backend="kernel", policy=pol, **kw)
+            step = skernel.LAUNCHES["sched_stream"] - before
+            if step != 1:
+                fail(f"run_stream(backend='kernel') {p} launched {step}")
+            launches += step
+            bad = differing(one.state, type(states)(*map(row, batch.state)))
+            bad += [f for f in one._fields[1:6] if not torch.equal(
+                getattr(one, f), getattr(batch, f)[i])]
+            if bad:
+                fail(f"run_stream(backend='kernel') {p} trial {i} differs "
+                     f"from the batched row in {bad}")
+    torch.cuda.synchronize()
+    print(f"sequential kernel path: run_stream(backend='kernel') on trials "
+          f"{trials} for {', '.join(pols)}: {launches} calls, one stream "
+          "kernel launch each, every field equal to the batched rows")
+    return launches
+
+
+def eager_walls(cfg, log, pol, runs=3):
+    """{backend: median run_trials wall ms} of ``runs`` runs each, host
+    clock around a synchronize (both backends ran these shapes before:
+    no warm-up run)."""
+    walls = {}
+    for backend in ("kernel", "jax"):
+        c = dataclasses.replace(cfg, backend=backend)
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            simulate.run_trials(0, c, pol, log)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        walls[backend] = sorted(times)[len(times) // 2]
+    return walls
+
+
+def eager_busy(cfg, log, pol):
+    """One eager `run_trials` under torch.profiler, tracing the device
+    alone and reading the raw trace (parsing some 10^5 kernels into
+    profiler events takes half a minute): (device busy ms, kernels run,
+    profiled wall ms).  Busy ms 0 if the trace holds no device time (not
+    measured)."""
+    c = dataclasses.replace(cfg, backend="jax")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        simulate.run_trials(0, c, pol, log)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.duration_ns() for e in kernels) / 1e6
+    return busy_ms, len(kernels), wall_ms
+
+
+def time_eager(runs, pols, card):
+    """ect's `run_trials` walls on both backends (median of 3) for each
+    (name, cfg, log) of ``runs``, and the device's busy share of one eager
+    run of each."""
+    pol = eager_pols(pols)["ect"]
+    for name, cfg, log in runs:
+        t0 = time.perf_counter()
+        walls = eager_walls(cfg, log, pol)
+        t1 = time.perf_counter()
+        busy_ms, kernels, prof_ms = eager_busy(cfg, log, pol)
+        t2 = time.perf_counter()
+        reqs = cfg.n_trials * cfg.n_requests
+        print(f"eager engine wall, {name}, ect, on {card}: backend='jax' "
+              f"{walls['jax']:.2f} ms ({reqs / walls['jax'] * 1e3:.0f} "
+              f"requests/s), backend='kernel' {walls['kernel']:.2f} ms "
+              f"({reqs / walls['kernel'] * 1e3:.0f} requests/s); ratio "
+              f"{walls['jax'] / walls['kernel']:.1f} (medians of 3)")
+        if busy_ms == 0.0:
+            print(f"  profiler, one eager run on {card}: no device time in "
+                  "the trace (busy share not measured)")
+        else:
+            print(f"  profiler, one eager run on {card}: {kernels} kernels, "
+                  f"device busy {busy_ms:.2f} ms; busy share "
+                  f"{busy_ms / walls['jax']:.3f} of the unprofiled wall, "
+                  f"{busy_ms / prof_ms:.3f} of the profiled wall "
+                  f"({prof_ms:.2f} ms)")
+        print(f"  (walls {t1 - t0:.1f} s, profiled run and its trace "
+              f"{t2 - t1:.1f} s)")
+
+
 # -- timing -------------------------------------------------------------------
 
 
@@ -1243,7 +1421,10 @@ def profile_serve(args, prefill_s, card):
             T.decode_step(params, caches, tok, 2 + i, cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    # the kernels' own entries: an operator's entry repeats the device
+    # time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(device_ms(e) for e in events)
     top = sorted(events, key=device_ms, reverse=True)[:6]
     print(f"serve breakdown on {card}: prefill {prefill_s:.4f} s = forward "
@@ -1445,9 +1626,9 @@ def main() -> None:
             for p in KERNEL_POLICIES}
     cfg = simulate.SimConfig(scenario=simulate.ScenarioConfig("transient"))
     log = simulate.default_log_cfg(cfg)
-    results, shared_counts = run_main_path(
+    shared_results, shared_counts = run_main_path(
         "shared_log", cfg, log, pols, dev, ("sched_stream",))
-    check_shared_log(results, cfg, log, pols, dev)
+    check_shared_log(shared_results, cfg, log, pols, dev)
 
     pc_cfg = simulate.SimConfig(
         client_model="per_client",
@@ -1456,12 +1637,31 @@ def main() -> None:
     c, per, _, win = simulate._client_split_shape(pc_cfg)
     print(f"per_client: {c} clients of {per} requests, window "
           f"{pc_cfg.window_size} clamped to {win}")
-    results, pc_counts = run_main_path(
+    pc_results, pc_counts = run_main_path(
         "per_client", pc_cfg, pc_log, pols, dev,
         ("sched_stream_grid", "client_merge"))
-    e_s, e_m = check_per_client(results, pc_cfg, pc_log, pols, dev)
+    e_s, e_m = check_per_client(pc_results, pc_cfg, pc_log, pols, dev)
     err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
-    del results
+
+    # -- the eager engine (backend="jax") against the kernel path -----------
+    t_eager = time.perf_counter()
+    eager_counts = {}
+    for name, c_, log_, kern in (("shared_log", cfg, log, shared_results),
+                                 ("per_client", pc_cfg, pc_log, pc_results)):
+        t0 = time.perf_counter()
+        eager, eager_counts[name] = run_eager_path(name, c_, log_, pols,
+                                                   kern)
+        t1 = time.perf_counter()
+        print_analysis(name, eager, kern, card)
+        print(f"  ({name}: eager sweeps {t1 - t0:.1f} s, analysis "
+              f"{time.perf_counter() - t1:.1f} s)")
+    del eager, shared_results, pc_results
+    t0 = time.perf_counter()
+    seq_launches = check_sequential_kernel(cfg, log, pols, dev)
+    print(f"  (sequential kernel path {time.perf_counter() - t0:.1f} s)")
+    time_eager((("shared_log", cfg, log), ("per_client", pc_cfg, pc_log)),
+               pols, card)
+    print(f"eager engine phase: {time.perf_counter() - t_eager:.1f} s")
 
     # -- the profiling and tuning path -------------------------------------
     tune_counts = run_tune_path(card)
@@ -1494,14 +1694,19 @@ def main() -> None:
              replaces=f"{ref}:130", launches=shared_counts["sched_stream"],
              max_abs_err=err_1d, library_ms=None, **t_1d,
              ablate_launches=tune_counts["sched_stream_ablate"],
+             sequential_launches=seq_launches,
+             eager_launches=eager_counts["shared_log"]["sched_stream"],
              levels_ms=split),
         dict(name="sched_stream_grid", route="cuda", source=src,
              replaces=f"{ref}:177",
              launches=pc_counts["sched_stream_grid"], max_abs_err=err_grid,
+             eager_launches=eager_counts["per_client"]["sched_stream_grid"],
              library_ms=None, **t_grid),
         dict(name="client_merge", route="cuda", source=src,
              replaces=f"{ref}:558", launches=pc_counts["client_merge"],
-             max_abs_err=err_merge, library_ms=None, **t_merge),
+             max_abs_err=err_merge,
+             eager_launches=eager_counts["per_client"]["client_merge"],
+             library_ms=None, **t_merge),
         *(dict(name=f"flash_attention_{r}", route="cuda",
                source=f"src/repro_torch/kernels/flash_attention/csrc/{f}",
                replaces="src/repro/kernels/flash_attention/kernel.py:33",

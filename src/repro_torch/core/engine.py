@@ -1,15 +1,29 @@
-"""Window/step scheduling engine, batched kernel form (paper §3.2).
+"""Window/step scheduling engine (paper §3.2).
 
-Counterpart of the JAX package's ``core/engine.py``, cut to
-`run_stream_batch` in its kernel forms: a ``(T,)`` batch of trials, or a
-``(T, C)`` batch of trials × private-log clients (the per_client model).
-The request time series is split into fixed-size windows; within a window
-same-object requests are grouped into one step (the object is fetched
-once, paper Fig. 7); the whole batch of streams is then scheduled in one
-launch of the stream kernel (plus, for ``(T, C)``, one launch of the
-cross-client merge), and the host-side bookkeeping (redirects, the
-step-to-request scatter, per-server counts, probes, the virtual clock)
-runs as plain tensor code afterwards.
+Counterpart of the JAX package's ``core/engine.py``.  The request time
+series is split into fixed-size windows; within a window same-object
+requests are grouped into one step (the object is fetched once, paper
+Fig. 7) and the steps are scheduled one after another against the
+client-side log.  Two backends run it:
+
+* ``"kernel"`` — the stream kernel: `run_stream_batch` schedules a
+  ``(T,)`` batch of trials, or a ``(T, C)`` batch of trials × private-log
+  clients (the per_client model), in one launch (plus, for ``(T, C)``,
+  one launch of the cross-client merge); `run_stream(backend="kernel")`
+  one stream per launch.  The bookkeeping the kernel leaves behind
+  (redirects, the step-to-request scatter, per-server counts, probes,
+  the virtual clock) runs as plain tensor code afterwards.
+* ``"jax"`` — the eager engine, named after the reference's backend (its
+  ``lax.scan``): `run_window` composes `policies.plan_window`,
+  `select_target_rng`, `apply_threshold` and the `statlog` updates, one
+  request position at a time, each step one batch of tensor ops over
+  every stream; `run_stream` loops over the windows.  It runs no kernel
+  of its own and reads nothing back to the host inside its loops.  For
+  the randomized policies it needs ``PolicyConfig(rng="lcg")``; it is
+  then bit-exact with the kernel path on every output.
+
+`run_stream_jit` of the reference is a ``jax.jit`` wrapper with no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -18,7 +32,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import policy_core
+from repro_torch.core import policies as P
+from repro_torch.core import policy_core, statlog
 from repro_torch.core.policies import PolicyConfig, validate_policy
 from repro_torch.core.policy_core import F32, f32
 from repro_torch.core.statlog import LogConfig, SchedState
@@ -62,6 +77,8 @@ class ScheduleResult(NamedTuple):
     redirected: torch.Tensor    # (..., R) bool chosen != default home
     latencies: torch.Tensor     # (..., R) float32 est. completion latency, s
     window_loads: torch.Tensor  # (..., W, M) post-drain load snapshots
+    rng: Optional[torch.Tensor] = None  # (...) final LCG state of the
+    #                             eager engine (None on the kernel path)
 
 
 class ClientMerge(NamedTuple):
@@ -162,6 +179,276 @@ def group_by_object_with_map(work: Workload) -> Tuple[Workload, torch.Tensor]:
     return grouped, req_to_step
 
 
+def group_by_object(work: Workload) -> Workload:
+    return group_by_object_with_map(work)[0]
+
+
+def _prep_streams(works: Workload, window_size: int, group_steps: bool):
+    """The window split and step grouping both backends share: returns
+    ``(n_win, steps, val, req_to_step)`` — the grouped steps and the
+    original validity as (..., W, window_size), and for every original
+    request the row of its step (the identity without grouping)."""
+    n_win, obj, lens, val = _window_split(works, window_size)
+    if group_steps:
+        steps, req_to_step = group_by_object_with_map(
+            Workload(obj, lens, val))
+    else:
+        steps = Workload(obj, lens, val)
+        req_to_step = torch.arange(window_size, device=obj.device).expand(
+            obj.shape)
+    return n_win, steps, val, req_to_step
+
+
+def _where_state(v: torch.Tensor, new: SchedState,
+                 old: SchedState) -> SchedState:
+    """Per stream, ``new`` where ``v`` holds and ``old`` elsewhere; a field
+    that is one tensor in both is kept as it is."""
+    def pick(a, b):
+        if a is b:
+            return a
+        return torch.where(v.reshape(v.shape + (1,) * (a.ndim - v.ndim)),
+                           a, b)
+    return SchedState(*map(pick, new, old))
+
+
+def _schedule_window(state: SchedState, work: Workload, rng: torch.Tensor,
+                     *, policy: PolicyConfig, log_cfg: LogConfig,
+                     observe: bool):
+    """The per-request loop of one window over grouped steps (..., R):
+    the plan, then per position the target, the redirect guard, Eq.
+    (1)-(3), the latency and the completion feedback; padding rows leave
+    the state as it was (the LCG advances on them too).  Returns
+    ``(state, rng, chosen int64, redirected, latencies)`` in step order,
+    before the window's renormalisation."""
+    r = work.n_requests
+    m = state.n_servers
+    plan = P.plan_window(policy, state, work.object_ids, work.lengths,
+                         work.valid)
+    sort = policy.name in ("mlml", "nltr")
+    if sort:
+        obj, lens, val = (torch.gather(x, -1, plan.order) for x in work)
+    else:
+        obj, lens, val = work
+    defaults = obj.to(torch.int64) % m
+    zero = policy_core.const(0.0, lens)
+    eps9 = policy_core.const(1e-9, lens)
+    chosen_at, lat_at = [], []
+    for pos in range(r):
+        ln, v = lens[..., pos], val[..., pos]
+        target, rng = P.select_target_rng(policy, plan, state, pos,
+                                          obj[..., pos], ln, rng)
+        chosen = P.apply_threshold(policy, state, defaults[..., pos],
+                                   target, ln)
+        new = statlog.apply_assignment(state, chosen, ln, log_cfg)
+        lat = statlog.estimated_latency(new, chosen)
+        if observe:
+            new = statlog.observe_completion(
+                new, chosen, ln / torch.maximum(lat, eps9), log_cfg)
+        state = _where_state(v, new, state)
+        chosen_at.append(chosen)
+        lat_at.append(torch.where(v, lat, zero))
+    chosen = torch.stack(chosen_at, dim=-1)
+    lat = torch.stack(lat_at, dim=-1)
+    if sort:
+        # plan order -> step order
+        rank = torch.empty_like(plan.order).scatter_(
+            -1, plan.order, policy_core.lanes(r, lat).expand(lat.shape))
+        chosen, lat = (torch.gather(x, -1, rank) for x in (chosen, lat))
+    redirected = (chosen != work.object_ids.to(torch.int64) % m) & work.valid
+    return state, rng, chosen, redirected, lat * work.valid
+
+
+def _initial_rng(seed, lead, device) -> torch.Tensor:
+    """The LCG states as int64 holding uint32 (zeros without a seed)."""
+    if seed is None:
+        return torch.zeros(lead, dtype=torch.int64, device=device)
+    return seed.to(torch.int64) & 0xFFFFFFFF
+
+
+def run_window(state: SchedState, work: Workload, *, policy: PolicyConfig,
+               log_cfg: LogConfig, group_steps: bool = True,
+               observe: bool = False, rng0=None) -> ScheduleResult:
+    """Schedule one time window's requests (..., R) against the log on the
+    eager engine; ``chosen``/``redirected``/``latencies`` come back in the
+    original request order (a step's requests share its decision).
+
+    ``observe`` folds each request's effective MB/s into the EWMA row
+    right after its assignment.  ``rng0`` (...) seeds the LCG of the
+    randomized policies (``rng="lcg"``); its final state is
+    ``ScheduleResult.rng``.  ``window_loads`` is the (..., 1, M) final
+    load row.  Grouping reads the longest object group back to the host
+    once; the per-request loop reads nothing back."""
+    validate_policy(policy, state.n_servers)
+    orig = work
+    req_to_step = None
+    if group_steps:
+        work, req_to_step = group_by_object_with_map(work)
+    rng = _initial_rng(rng0, tuple(state.log.shape[:-2]), state.log.device)
+    state, rng, chosen, redirected, latencies = _schedule_window(
+        state, work, rng, policy=policy, log_cfg=log_cfg, observe=observe)
+    if log_cfg.renorm:
+        state = statlog.renormalize(state)
+    if req_to_step is not None:
+        chosen = torch.gather(chosen, -1, req_to_step)
+        redirected = torch.gather(redirected, -1, req_to_step) & orig.valid
+        latencies = torch.gather(latencies, -1, req_to_step) * orig.valid
+    probes = (work.valid.sum(dim=-1)
+              * policy.probes_per_request).to(torch.int32)
+    return ScheduleResult(state=state, chosen=chosen.to(torch.int32),
+                          probe_msgs=probes, redirected=redirected,
+                          latencies=latencies,
+                          window_loads=state.loads.unsqueeze(-2), rng=rng)
+
+
+def _eager_streams(state: SchedState, steps: Workload, val: torch.Tensor,
+                   req_to_step: torch.Tensor, win_rates: torch.Tensor,
+                   seeds, *, policy: PolicyConfig, log_cfg: LogConfig,
+                   window_dt: float, observe: bool, r: int
+                   ) -> ScheduleResult:
+    """The eager engine over windowed streams: ``steps``, ``val`` and
+    ``req_to_step`` as `_prep_streams` gives them, ``win_rates``
+    (..., W, M) broadcasting against the states' leading shape (per-trial
+    rates carry a client axis of 1).  Per window: the rates in effect,
+    `_schedule_window`, the renormalisation, then the drain by the
+    window's precomputed decrements; one LCG state per stream carries
+    across the windows."""
+    n_win = steps.object_ids.shape[-2]
+    win_dec = policy_core.window_decrements(win_rates, window_dt)
+    rng = _initial_rng(seeds, tuple(state.log.shape[:-2]), state.log.device)
+    chosen, redirected, lats, wloads = [], [], [], []
+    for w in range(n_win):
+        state = state._replace(
+            rates=win_rates[..., w, :].expand(state.rates.shape))
+        state, rng, ch, rd, lat = _schedule_window(
+            state, Workload(*(x[..., w, :] for x in steps)), rng,
+            policy=policy, log_cfg=log_cfg, observe=observe)
+        if log_cfg.renorm:
+            state = statlog.renormalize(state)
+        if window_dt:
+            state = statlog.advance_time(state, window_dt,
+                                         win_dec[..., w, :])
+        chosen.append(ch)
+        redirected.append(rd)
+        lats.append(lat)
+        wloads.append(state.loads)
+    # step order -> original request order
+    back = lambda x: torch.gather(torch.stack(x, dim=-2), -1,  # noqa: E731
+                                  req_to_step)
+    first = lambda x: x.flatten(-2)[..., :r]  # noqa: E731
+    probes = (steps.valid.sum(dim=(-2, -1))
+              * policy.probes_per_request).to(torch.int32)
+    return ScheduleResult(
+        state=state, chosen=first(back(chosen)).to(torch.int32),
+        probe_msgs=probes, redirected=first(back(redirected) & val),
+        latencies=first(back(lats) * val),
+        window_loads=torch.stack(wloads, dim=-2), rng=rng)
+
+
+def grouped_latency_block(works: Workload, latencies: torch.Tensor,
+                          window_size: int, group_steps: bool = True):
+    """The kernel's grouped-step latency block recovered from per-request
+    latencies (..., R): the same window split and grouping, each step's
+    latency the min over its requests (a step's requests share its bits,
+    so this only selects).  Returns ``(lats, valid)`` (..., N) with
+    ``N = W * window_size``, invalid steps 0.0."""
+    n_win, steps, val, req_to_step = _prep_streams(works, window_size,
+                                                   group_steps)
+    pad = n_win * window_size - latencies.shape[-1]
+    if pad:
+        latencies = torch.cat(
+            [latencies, latencies.new_zeros(latencies.shape[:-1] + (pad,))],
+            dim=-1)
+    lat_w = latencies.reshape(val.shape).to(F32)
+    zero = f32(0.0, lat_w)
+    if not group_steps:
+        return torch.where(val, lat_w, zero).flatten(-2), val.flatten(-2)
+    inf = torch.full_like(lat_w, float("inf"))
+    g_lat = inf.scatter_reduce(-1, req_to_step, torch.where(val, lat_w, inf),
+                               reduce="amin")
+    g_lat = torch.where(steps.valid, g_lat, zero)
+    return g_lat.flatten(-2), steps.valid.flatten(-2)
+
+
+def run_stream(state: SchedState, work: Workload, seed, *,
+               policy: PolicyConfig, log_cfg: LogConfig, window_size: int,
+               group_steps: bool = True,
+               trace: Optional[ClusterTrace] = None, window_dt: float = 0.0,
+               observe: Optional[bool] = None,
+               backend: str = "jax") -> ScheduleResult:
+    """Split a request stream (..., R) into windows and schedule each
+    (§3.2); padding is invalid.  Window ``w`` opens at virtual time
+    ``w * window_dt``: with a ``trace`` its rates are looked up there, and
+    after the window the queues drain for ``window_dt`` seconds.
+    ``observe`` defaults to on exactly when a trace is given.  ``seed``
+    (...) holds the uint32 LCG states (any integer dtype).
+
+    ``backend="jax"`` (as in the reference, the default here) runs the
+    eager engine over any leading batch axes; ``"kernel"`` runs the
+    stream kernel, one launch per call, for one stream or a (T,) batch
+    (`ops.sched_stream`).  The two agree bit for bit, the randomized
+    policies under ``PolicyConfig(rng="lcg")``.  The kernel caps the
+    window and the padded server count at 1024
+    (`kernels.sched_select.kernel.MAX_WINDOW`); the eager engine has no
+    cap."""
+    validate_policy(policy, state.n_servers)
+    if observe is None:
+        observe = trace is not None
+    if backend == "kernel":
+        return _run_stream_kernel(state, work, seed, policy=policy,
+                                  log_cfg=log_cfg, window_size=window_size,
+                                  group_steps=group_steps, trace=trace,
+                                  window_dt=window_dt, observe=observe)
+    if backend != "jax":
+        raise ValueError(f"backend must be 'jax' or 'kernel', got {backend!r}")
+    n_win, steps, val, req_to_step = _prep_streams(work, window_size,
+                                                   group_steps)
+    win_rates = _window_rates(state, trace, n_win, window_dt)
+    return _eager_streams(state, steps, val, req_to_step, win_rates, seed,
+                          policy=policy, log_cfg=log_cfg,
+                          window_dt=window_dt, observe=observe,
+                          r=work.n_requests)
+
+
+def _run_stream_kernel(state: SchedState, work: Workload, seed, *,
+                       policy: PolicyConfig, log_cfg: LogConfig,
+                       window_size: int, group_steps: bool,
+                       trace: Optional[ClusterTrace], window_dt: float,
+                       observe: bool) -> ScheduleResult:
+    """The sequential kernel path: the same window split and grouping as
+    the eager engine, one launch of the stream kernel for the stream (or
+    a (T,) batch), then `_kernel_bookkeeping`."""
+    if policy.name not in KERNEL_POLICIES:
+        raise ValueError(f"backend='kernel' supports {KERNEL_POLICIES}, "
+                         f"got {policy.name!r}")
+    lead = tuple(state.log.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(
+            f"run_stream(backend='kernel') takes one stream or a (T,) batch, "
+            f"got states {lead}; a (T, C) batch goes through run_stream_batch")
+    r = work.n_requests
+    n_win, steps, val, req_to_step = _prep_streams(work, window_size,
+                                                   group_steps)
+    win_rates = _window_rates(state, trace, n_win, window_dt)
+    flat = lambda x: x.reshape(lead + (-1,))  # noqa: E731
+    choices, lats, table, wloads = kops.sched_stream(
+        flat(steps.object_ids), flat(steps.lengths), flat(steps.valid),
+        state.log, seed, win_rates, n_servers=state.n_servers,
+        window_size=window_size, threshold=policy.threshold,
+        lam=log_cfg.lam, alpha=log_cfg.ewma_alpha, window_dt=window_dt,
+        policy=policy.name, observe=observe, renorm=log_cfg.renorm,
+        nltr_n=policy.nltr_n, probe_choices=policy.probe_choices)
+    one = (lambda x: x) if lead else (lambda x: x.unsqueeze(0))
+    res = _kernel_bookkeeping(
+        SchedState(*map(one, state)), one(choices), one(lats), one(table),
+        one(wloads), one(steps.object_ids), one(steps.valid), one(val),
+        one(req_to_step), one(win_rates[..., -1, :]), policy=policy,
+        window_dt=window_dt, n_win=n_win, window_size=window_size, r=r)
+    if lead:
+        return res
+    return ScheduleResult(SchedState(*(x[0] for x in res.state)),
+                          *(x[0] for x in res[1:6]))
+
+
 def _kernel_bookkeeping(states: SchedState, choices, lats, tables, wloads,
                         g_obj, g_val, val, req_to_step, rates_last, *,
                         policy: PolicyConfig, window_dt: float, n_win: int,
@@ -218,9 +505,11 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
                      traces: Optional[ClusterTrace] = None,
                      window_dt: float = 0.0, observe: Optional[bool] = None,
                      trial_tile=None, client_tile=None, ablate: int = 0,
+                     backend: str = "kernel",
                      stream_batch=kops.sched_stream_batch,
                      stream_grid=kops.sched_stream_grid):
-    """A batch of windowed streams scheduled in one kernel launch.
+    """A batch of windowed streams scheduled in one kernel launch, or on
+    the eager engine.
 
     ``states``/``works``/``seeds`` carry a leading ``(T,)`` trial axis, or
     ``(T, C)`` trials × clients (the per_client model: each client
@@ -236,8 +525,9 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     only) drops the kernel's trailing phases for the differential phase
     profile (`repro_torch.tune.profile.kernel_phase_profile`); outputs
     past the dropped phase are zeros, so a nonzero level is for timing.
-    The three stages run under `tune.profile.stage` ("engine_prep",
-    "kernel", "book"), inert unless a profile is collected.
+    The stages run under `tune.profile.stage` ("engine_prep", then
+    "kernel" and "book", or "eager" on the eager engine), inert unless a
+    profile is collected.
 
     ``stream_batch`` / ``stream_grid`` schedule the ``(T,)`` / ``(T, C)``
     forms; the defaults are the kernel dispatch.  Passing
@@ -246,12 +536,22 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     device, which is how the kernels are held against it end to end on
     the card.
 
+    ``backend="jax"`` schedules the same batch on the eager engine
+    (`run_stream`'s jax path over the batch axes; the randomized policies
+    need ``PolicyConfig(rng="lcg")``), bit-exact per stream with the
+    kernel path, and returns ``(result, None, None)``: no fused metric
+    rows and no merge.
+
     Returns ``(result, metrics, merged)``: a `ScheduleResult` with the
     leading batch axes on every field, the kernel's fused
     (..., N_METRICS) per-stream metric rows in `policy_core.MET_*` order,
     and the `ClientMerge` of the ``(T, C)`` form (None for ``(T,)``)."""
     validate_policy(policy, states.n_servers)
-    if policy.name not in KERNEL_POLICIES:
+    if backend not in ("jax", "kernel"):
+        raise ValueError(f"backend={backend!r} must be 'jax' or 'kernel'")
+    if ablate and backend != "kernel":
+        raise ValueError("ablate profiling levels need backend='kernel'")
+    if backend == "kernel" and policy.name not in KERNEL_POLICIES:
         raise ValueError(f"run_stream_batch supports {KERNEL_POLICIES}, "
                          f"got {policy.name!r}")
     batch_shape = tuple(works.object_ids.shape[:-1])
@@ -269,13 +569,25 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     r = works.object_ids.shape[-1]
     m = states.n_servers
     with tune_profile.stage("engine_prep"):
-        n_win, obj, lens, val = _window_split(works, window_size)
-        (g_obj, g_lens, g_val), req_to_step = group_by_object_with_map(
-            Workload(obj, lens, val))
-        # rates are per trial: a trial's clients share its cluster
-        rate_states = states._replace(rates=states.rates[:, 0]) if two_d \
-            else states
-        win_rates = _window_rates(rate_states, traces, n_win, window_dt)
+        n_win, (g_obj, g_lens, g_val), val, req_to_step = _prep_streams(
+            works, window_size, True)
+        if backend == "jax" and traces is None:
+            # each stream at its own state's rates
+            win_rates = _window_rates(states, None, n_win, window_dt)
+        else:
+            # rates are per trial: a trial's clients share its cluster
+            rate_states = states._replace(rates=states.rates[:, 0]) \
+                if two_d else states
+            win_rates = _window_rates(rate_states, traces, n_win, window_dt)
+            if backend == "jax" and two_d:
+                win_rates = win_rates[:, None]
+    if backend == "jax":
+        with tune_profile.stage("eager"):
+            res = _eager_streams(
+                states, Workload(g_obj, g_lens, g_val), val, req_to_step,
+                win_rates, seeds, policy=policy, log_cfg=log_cfg,
+                window_dt=window_dt, observe=observe, r=r)
+        return res, None, None
     kw = dict(n_servers=m, window_size=window_size,
               threshold=policy.threshold, lam=log_cfg.lam,
               alpha=log_cfg.ewma_alpha, window_dt=window_dt,
@@ -310,5 +622,5 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
             window_dt=window_dt, n_win=n_win, window_size=window_size, r=r)
         unflat = lambda x: x.unflatten(0, batch_shape)  # noqa: E731
         result = ScheduleResult(SchedState(*map(unflat, res.state)),
-                                *map(unflat, res[1:]))
+                                *map(unflat, res[1:6]))
     return result, metrics, merged

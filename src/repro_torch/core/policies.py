@@ -1,10 +1,13 @@
 """Scheduling policies — the engine half.
 
-Counterpart of the JAX package's ``core/policies.py``.  The per-request
-selection rules themselves live in the trial-grid kernel
-(`repro_torch.kernels.sched_select`), which draws all randomness from its
-own uint32 LCG; this module holds the policy configuration and its
-cross-field validation.
+Counterpart of the JAX package's ``core/policies.py``: the policy
+configuration and its validation, and the rules the eager engine
+(`core/engine.py`, ``backend="jax"``) composes — the window-start plan
+(`plan_window`), the per-request target (`select_target`,
+`select_target_rng`) and the redirect guard (`apply_threshold`).  The
+stream kernel (`repro_torch.kernels.sched_select`) runs the same rules in
+its own body.  Every function takes any leading batch axes: a state's
+rows are (..., M), a window's requests (..., R), per-stream scalars (...).
 
 * ``rr``         — round-robin baseline: ``object_id mod M``.
 * ``mlml``       — Max Length - Min Load (paper Alg. 1).
@@ -17,6 +20,12 @@ cross-field validation.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import policy_core
+from repro_torch.core.statlog import SchedState
 
 POLICIES = ("rr", "mlml", "trh", "nltr", "two_choice", "ect")
 
@@ -31,14 +40,27 @@ PROBES_PER_REQUEST = {
 }
 
 
+RNG_IMPLS = ("jax", "lcg")
+# Policies that draw random candidates.
+RANDOM_POLICIES = ("trh", "nltr", "two_choice")
+
+
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
-    """Static configuration of a scheduling policy."""
+    """Static configuration of a scheduling policy.
+
+    ``rng`` is the eager engine's randomness source for the randomized
+    policies: ``"jax"`` (the reference's threefry keys, not ported: the
+    eager engine raises naming ROADMAP A7) or ``"lcg"`` (the stream
+    kernel's uint32 LCG, drawn from the stream's seed exactly as the
+    kernel draws it — the parity setting).  Deterministic policies and
+    the kernel backend ignore it."""
 
     name: str = "trh"
     threshold: float = 0.0      # benefit required to redirect (MB; s for ect)
     nltr_n: int = 2             # n of nLTR; K = 2**n sections
     probe_choices: int = 2      # two_choice only: candidates probed
+    rng: str = "jax"
 
     def __post_init__(self):
         if self.name not in POLICIES:
@@ -46,6 +68,8 @@ class PolicyConfig:
                 f"unknown policy {self.name!r}; choose from {POLICIES}")
         if self.name == "nltr" and not (1 <= self.nltr_n <= 6):
             raise ValueError("nltr_n must be in [1, 6]")
+        if self.rng not in RNG_IMPLS:
+            raise ValueError(f"rng must be one of {RNG_IMPLS}")
 
     @property
     def k_sections(self) -> int:
@@ -65,3 +89,148 @@ def validate_policy(cfg: PolicyConfig, n_servers: int) -> None:
             f"nltr needs 2**nltr_n <= n_servers: nltr_n={cfg.nltr_n} gives "
             f"K={cfg.k_sections} sections for n_servers={n_servers} "
             "(sections would collapse onto the same server range)")
+
+
+def check_eager_rng(cfg: PolicyConfig) -> None:
+    """The eager engine draws a randomized policy's candidates from the
+    LCG only: threefry keys (``rng="jax"``) are not ported."""
+    if cfg.name in RANDOM_POLICIES and cfg.rng != "lcg":
+        raise NotImplementedError(
+            f"{cfg.name} with rng={cfg.rng!r} needs the reference's threefry "
+            "keys, which wait for ROADMAP Queue A7; pass "
+            "PolicyConfig(rng='lcg') to draw from the stream kernel's LCG")
+
+
+class WindowPlan(NamedTuple):
+    """Window-start snapshot read by the per-request selection: the
+    servers (and, for mlml/nltr, the requests) are sorted once per
+    window, while the loads read inside the window are live."""
+
+    order: torch.Tensor           # (..., R) int64 request processing order
+    sorted_servers: torch.Tensor  # (..., M) int64 ids, highest prob first
+    req_section: torch.Tensor     # (..., R) int64 nLTR section per position
+    sec_size: int                 # servers per nLTR section (M otherwise)
+
+
+def _recursive_average_boundaries(sorted_len: torch.Tensor,
+                                  valid: torch.Tensor,
+                                  n_levels: int) -> torch.Tensor:
+    """nLTR's request sections on a desc-sorted length list: the (..., K-1)
+    boundary indices of `policy_core.recursive_average_bounds`; the
+    section of position ``p`` is ``sum(bounds <= p)``."""
+    nvalid = valid.sum(dim=-1, keepdim=True)
+    return policy_core.recursive_average_bounds(sorted_len, nvalid, n_levels)
+
+
+def plan_window(cfg: PolicyConfig, state: SchedState,
+                object_ids: torch.Tensor, lengths: torch.Tensor,
+                valid: torch.Tensor) -> WindowPlan:
+    """The window-start plan: servers by probability descending, and for
+    mlml/nltr the requests by length descending (invalid rows last), as
+    stable argsorts.  Both orders are ``(key desc, index asc)``, a strict
+    total order, so they equal the stream kernel's all-pairs ranks
+    (`policy_core.rank_desc`) by construction."""
+    r = object_ids.shape[-1]
+    m = state.n_servers
+    sorted_servers = torch.argsort(-state.probs, dim=-1, stable=True)
+    if cfg.name in ("mlml", "nltr"):
+        key_len = torch.where(valid, lengths,
+                              policy_core.const(float("-inf"), lengths))
+        order = torch.argsort(-key_len, dim=-1, stable=True)
+    else:
+        order = policy_core.lanes(r, lengths).expand(lengths.shape)
+    if cfg.name == "nltr":
+        k = cfg.k_sections
+        sorted_len = torch.gather(lengths, -1, order)
+        sorted_valid = torch.gather(valid, -1, order)
+        bounds = _recursive_average_boundaries(sorted_len, sorted_valid,
+                                               cfg.nltr_n)
+        pos = policy_core.lanes(r, lengths)
+        req_section = (pos[:, None] >= bounds.unsqueeze(-2)).sum(dim=-1)
+        req_section = req_section.clamp(0, k - 1)
+        sec_size = max(m // k, 1)
+    else:
+        req_section = torch.zeros_like(order)
+        sec_size = m
+    return WindowPlan(order=order, sorted_servers=sorted_servers,
+                      req_section=req_section, sec_size=sec_size)
+
+
+def _two_random_min_load(state: SchedState, sorted_servers: torch.Tensor,
+                         p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """The servers at positions ``p1`` and ``p2`` of the sorted list; the
+    one with the smaller live load (the first on a tie)."""
+    s1 = policy_core.take(sorted_servers, p1)
+    s2 = policy_core.take(sorted_servers, p2)
+    return torch.where(policy_core.take(state.loads, s1)
+                       <= policy_core.take(state.loads, s2), s1, s2)
+
+
+def select_target(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
+                  pos: int, object_id: torch.Tensor, length: torch.Tensor
+                  ) -> torch.Tensor:
+    """Per-request target server (before the redirect guard) of a
+    deterministic policy; ``pos`` is the request's position in the
+    window's processing order.  Returns (...) int64.  The randomized
+    policies draw through `select_target_rng`."""
+    m = state.n_servers
+    if cfg.name == "rr":
+        return object_id.to(torch.int64) % m
+    if cfg.name == "mlml":
+        # k-th longest request -> k-th lightest server, circularly (Alg. 1)
+        return plan.sorted_servers[..., pos % m]
+    if cfg.name == "ect":
+        return torch.argmin(policy_core.ect_scores(
+            state.loads, state.est_rates, length), dim=-1)
+    raise NotImplementedError(
+        f"select_target draws {cfg.name}'s candidates with the reference's "
+        "threefry keys, which wait for ROADMAP Queue A7; select_target_rng "
+        "draws them from the LCG under PolicyConfig(rng='lcg')")
+
+
+def select_target_rng(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
+                      pos: int, object_id: torch.Tensor,
+                      length: torch.Tensor, rng: torch.Tensor):
+    """`select_target` threading the uint32 LCG state ``rng`` (int64
+    tensor, (...)): under ``rng="lcg"`` trh and nltr take
+    `policy_core.two_random_draws` and two_choice ``probe_choices - 1``
+    single draws, exactly as the stream kernel does, on padding rows too.
+    Returns ``(target, rng)``; a deterministic policy passes ``rng``
+    through."""
+    if cfg.name not in RANDOM_POLICIES:
+        return select_target(cfg, plan, state, pos, object_id, length), rng
+    check_eager_rng(cfg)
+    m = state.n_servers
+    if cfg.name == "trh":
+        i1, i2, rng = policy_core.two_random_draws(rng, max(m // 2, 1))
+        return _two_random_min_load(state, plan.sorted_servers, i1,
+                                    i2), rng
+    if cfg.name == "nltr":
+        lo = plan.req_section[..., pos] * plan.sec_size
+        i1, i2, rng = policy_core.two_random_draws(rng, plan.sec_size)
+        return _two_random_min_load(state, plan.sorted_servers, lo + i1,
+                                    lo + i2), rng
+    # two_choice: the default home and probe_choices - 1 random servers,
+    # the lightest by live load (the first on a tie)
+    cand = [object_id.to(torch.int64) % m]
+    for _ in range(cfg.probe_choices - 1):
+        rng = policy_core.lcg_step(rng)
+        cand.append(policy_core.lcg_mod(rng, m))
+    cand = torch.stack(cand, dim=-1)
+    best = torch.argmin(torch.gather(state.loads, -1, cand), dim=-1)
+    return policy_core.take(cand, best), rng
+
+
+def apply_threshold(cfg: PolicyConfig, state: SchedState,
+                    default: torch.Tensor, target: torch.Tensor,
+                    length: torch.Tensor) -> torch.Tensor:
+    """The paper's redirect guard: take ``target`` only where its benefit
+    (`policy_core.redirect_benefit`, on the estimated rates for ect)
+    exceeds the threshold; rr always keeps ``default``."""
+    if cfg.name == "rr":
+        return default
+    benefit = policy_core.redirect_benefit(cfg.name, state.loads,
+                                           state.est_rates, default, target,
+                                           length)
+    return torch.where(benefit > policy_core.const(cfg.threshold, benefit),
+                       target, default)

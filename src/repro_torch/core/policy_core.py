@@ -1,8 +1,10 @@
 """The scheduler's decision math on torch tensors.
 
-Counterpart of the JAX package's ``core/policy_core.py``, cut to what the
-trial-grid kernel and its pipeline use.  Every client schedules against
-one packed ``(4, M)`` float32 table:
+Counterpart of the JAX package's ``core/policy_core.py``: the decision
+core that the eager engine (`core/engine.py` through `core/statlog.py`
+and `core/policies.py`) composes and the stream kernel's plain version
+mirrors.  Every client schedules against one packed ``(4, M)`` float32
+table:
 
     row 0  ``loads``      expected outstanding MB per server (Eq. 1)
     row 1  ``probs``      selection probability, sums to 1 (Eqs. 2-3)
@@ -20,6 +22,7 @@ operation.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -73,6 +76,44 @@ def f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=F32, device=like.device)
 
 
+@functools.lru_cache(maxsize=256)
+def _const(x: float, device: torch.device) -> torch.Tensor:
+    return f32(x, torch.empty((), device=device))
+
+
+def const(x, like: torch.Tensor) -> torch.Tensor:
+    """`f32` kept once per value and device: the eager engine's per-request
+    functions read their scalars through here, so no step pays a fill."""
+    return _const(float(x), like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _lanes(m: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(m, device=device)
+
+
+def lanes(m: int, like: torch.Tensor) -> torch.Tensor:
+    """``arange(m)`` (int64) on ``like``'s device, kept once per size."""
+    return _lanes(m, like.device)
+
+
+def take(row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``row[..., idx]`` for one index per leading position: ``row``
+    (..., M), ``idx`` (...) integer; returns (...)."""
+    return torch.gather(row, -1, idx.to(torch.int64).unsqueeze(-1)
+                        ).squeeze(-1)
+
+
+def onehot(idx: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m) bool, true at lane ``idx[...]``."""
+    return lanes(m, idx) == idx.unsqueeze(-1)
+
+
+def pack(loads, probs, ewma_lat, est_rates) -> torch.Tensor:
+    """Stack the four rows into one (..., 4, M) table."""
+    return torch.stack([loads, probs, ewma_lat, est_rates], dim=-2)
+
+
 def init_table(m: int, batch=None, device="cuda") -> torch.Tensor:
     """Fresh log: zero loads, round-robin prior ``1/M``, no observations,
     unit estimated rates.  ``batch`` adds a leading trial axis.  On the
@@ -106,6 +147,46 @@ def lcg_mod(rng: torch.Tensor, n) -> torch.Tensor:
     return ((rng >> 8) & 0x7FFFFFFF) % n
 
 
+def two_random_draws(rng: torch.Tensor, n: int):
+    """Two consecutive LCG draws in [0, n); returns ``(d1, d2, new_rng)``
+    — the kernel's draw sequence for trh and nltr."""
+    r1 = lcg_step(rng)
+    r2 = lcg_step(r1)
+    return lcg_mod(r1, n), lcg_mod(r2, n), r2
+
+
+# ---------------------------------------------------------------------------
+# Decision core: scores and the redirect guard's benefit
+# ---------------------------------------------------------------------------
+
+
+def ect_rates(ewma_lat: torch.Tensor) -> torch.Tensor:
+    """The estimated-rate row from the observation EWMA alone: unobserved
+    servers get the best rate seen (at least 1 MB/s)."""
+    default = torch.maximum(ewma_lat.amax(dim=-1, keepdim=True),
+                            const(1.0, ewma_lat))
+    return torch.where(ewma_lat > 0, ewma_lat, default)
+
+
+def ect_scores(loads: torch.Tensor, est_rates: torch.Tensor,
+               length: torch.Tensor) -> torch.Tensor:
+    """Expected completion time per server, ``(load_i + len) / est_i``;
+    ``length`` (...) per stream."""
+    return (loads + length.unsqueeze(-1)) / est_rates
+
+
+def redirect_benefit(policy_name: str, loads: torch.Tensor,
+                     est_rates: torch.Tensor, default: torch.Tensor,
+                     target: torch.Tensor, length: torch.Tensor
+                     ) -> torch.Tensor:
+    """The redirect guard's benefit: MB of load, or expected seconds on the
+    estimated rates for ect.  ``default``/``target``/``length``: (...)."""
+    if policy_name == "ect":
+        return ((take(loads, default) + length) / take(est_rates, default)
+                - (take(loads, target) + length) / take(est_rates, target))
+    return take(loads, default) - take(loads, target)
+
+
 # ---------------------------------------------------------------------------
 # All-pairs rank and permutation applies
 # ---------------------------------------------------------------------------
@@ -136,6 +217,77 @@ def permute_to_sorted(rank: torch.Tensor, payloads):
 def permute_from_sorted(rank: torch.Tensor, payloads):
     """``out[i] = payload[rank[i]]`` — the inverse relocation."""
     return tuple(torch.gather(x, -1, rank) for x in payloads)
+
+
+def _bitonic_network(keys, idx, payloads, descending: bool):
+    """The textbook bitonic schedule on power-of-two lanes, ordering by
+    ``(key desc|asc, index asc)``; the payloads move under the same swap
+    masks, so they are only relocated."""
+    pos = idx
+    rp = keys.shape[-1]
+    payloads = list(payloads)
+
+    def partner(x, is_lo, j):
+        return torch.where(is_lo, torch.roll(x, -j, dims=-1),
+                           torch.roll(x, j, dims=-1))
+
+    k = 2
+    while k <= rp:
+        asc = (pos & k) == 0
+        j = k // 2
+        while j >= 1:
+            is_lo = (pos & j) == 0
+            pk, pi = partner(keys, is_lo, j), partner(idx, is_lo, j)
+            ahead = (pk > keys) if descending else (pk < keys)
+            p_first = ahead | ((pk == keys) & (pi < idx))
+            swap = torch.where(asc == is_lo, p_first, ~p_first)
+            keys = torch.where(swap, pk, keys)
+            idx = torch.where(swap, pi, idx)
+            payloads = [torch.where(swap, partner(p, is_lo, j), p)
+                        for p in payloads]
+            j //= 2
+        k *= 2
+    return keys, idx, tuple(payloads)
+
+
+def bitonic_sort_with_payload(keys: torch.Tensor, payloads=(), valid=None):
+    """Stable descending sort as an explicit bitonic network carrying
+    ``payloads`` (each of the keys' shape, any dtype).  ``valid`` masks
+    keys to ``-inf`` first; the last axis pads to the next power of two
+    with ``-inf`` keys and zero payloads.  Returns ``(order int64
+    (..., R_pad), sorted_keys, sorted_payloads)``: ``order`` maps sorted
+    position to original index, equal to ``argsort(-keys, stable)`` on
+    the first R positions."""
+    r = keys.shape[-1]
+    rp = _next_pow2(r)
+    if valid is not None:
+        keys = torch.where(valid, keys, f32(float("-inf"), keys))
+    if rp != r:
+        keys = torch.nn.functional.pad(keys, (0, rp - r),
+                                       value=float("-inf"))
+        payloads = tuple(torch.nn.functional.pad(p, (0, rp - r))
+                         for p in payloads)
+    idx = torch.arange(rp, device=keys.device).expand(keys.shape)
+    keys, idx, payloads = _bitonic_network(keys, idx, payloads, True)
+    return idx, keys, payloads
+
+
+def bitonic_argsort_desc(keys: torch.Tensor, valid=None):
+    """`bitonic_sort_with_payload` with no payloads: ``(order,
+    sorted_keys)``."""
+    order, skeys, _ = bitonic_sort_with_payload(keys, (), valid=valid)
+    return order, skeys
+
+
+def bitonic_apply_inverse(order: torch.Tensor, payloads):
+    """Move sorted payloads back to original-index order,
+    ``out[order[p]] = payload[p]``, by one ascending bitonic pass keyed on
+    the distinct integers of ``order`` ((..., R_pad), R_pad a power of
+    two)."""
+    idx = torch.arange(order.shape[-1], device=order.device).expand(
+        order.shape)
+    _, _, payloads = _bitonic_network(order, idx, payloads, False)
+    return payloads
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +377,49 @@ def absorb_probs(loads: torch.Tensor, lam: float, m: int) -> torch.Tensor:
     ``p_i ∝ (1/M) · exp(-l_i / λ)``, normalised through `lane_sum`."""
     p = torch.exp(-loads / f32(lam, loads)) / f32(m, loads)
     return p / lane_sum(p)
+
+
+def assignment_update(loads: torch.Tensor, probs: torch.Tensor,
+                      server: torch.Tensor, length: torch.Tensor, lam: float,
+                      m: int):
+    """Eq. (1)-(3) as one-hot selects: book ``length`` MB on ``server``,
+    decay its probability by ``e = exp(-l_i / λ)`` and spread the lost
+    mass ``p_i * (1 - e) / (M-1)`` over the other servers (never the
+    ``(p_i - p_i*e)`` form: every product feeds a select or a divide).
+    ``loads``/``probs`` (..., M); ``server``/``length`` (...)."""
+    hot = onehot(server, m)
+    loads = torch.where(hot, loads + length.unsqueeze(-1), loads)
+    l_i = take(loads, server)
+    p_i = take(probs, server)
+    e = torch.exp(-l_i / const(lam, loads))
+    decayed = p_i * e
+    delta = p_i * (const(1.0, e) - e) / const(m - 1, e)
+    probs = torch.where(hot, decayed.unsqueeze(-1),
+                        probs + delta.unsqueeze(-1))
+    return loads, probs
+
+
+def observe_update(ewma_lat: torch.Tensor, server: torch.Tensor,
+                   mb_per_s: torch.Tensor, alpha: float):
+    """Fold one observed rate per stream into the EWMA row (the first
+    observation replaces the 0) and re-derive the estimated-rate row.
+    The blend ``(1-α)·old + α·mbps`` runs as separate multiplies and an
+    add.  Returns ``(ewma_lat, est_rates)``."""
+    old = take(ewma_lat, server)
+    blend = (const(1 - alpha, old) * old
+             + const(alpha, old) * mb_per_s)
+    new = torch.where(old == 0.0, mb_per_s, blend)
+    ewma_lat = torch.where(onehot(server, ewma_lat.shape[-1]),
+                           new.unsqueeze(-1), ewma_lat)
+    return ewma_lat, ect_rates(ewma_lat)
+
+
+def estimated_latency(loads: torch.Tensor, rates: torch.Tensor,
+                      server: torch.Tensor) -> torch.Tensor:
+    """Seconds until a request just queued on ``server`` completes at the
+    given true rates: ``loads[server] / max(rates[server], 1e-6)``."""
+    return take(loads, server) / torch.maximum(take(rates, server),
+                                               const(1e-6, rates))
 
 
 def server_segment_sum(values: torch.Tensor, idx: torch.Tensor, m: int,

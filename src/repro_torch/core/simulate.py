@@ -21,8 +21,14 @@ temporal straggler scenarios, under one of two client models:
 * `_sched_trials` — every stream in ONE launch of the stream kernel, plus
   one of the cross-client merge under per_client
   (`engine.run_stream_batch`), with the tiles resolved once by
-  `repro_torch.tune.table.resolve_sim_tiles`;
+  `repro_torch.tune.table.resolve_sim_tiles`; or, under
+  ``SimConfig(backend="jax")``, on the eager engine, with the
+  cross-client fold as tensor code at the same resolved client tile;
 * `_post_trials`  — the per-trial `TrialResult` bookkeeping.
+
+The port's default backend is ``"kernel"``; the reference's is ``"jax"``.
+Both give the same `TrialResult` bit for bit (the randomized policies
+under ``PolicyConfig(rng="lcg")``).
 
 The draws follow the reference's distributions, not its bits (the JAX
 package draws with threefry, which is not ported); `repro_torch.interop`
@@ -86,6 +92,9 @@ class SimConfig:
     "fused" (the reference's fused client block: the same client tile)
     or "tuned" (the `repro_torch.tune` table's winner; a miss degrades to
     "fused"); explicit tiles always win (`tune.table.resolve_sim_tiles`).
+    ``backend`` is "kernel" (the stream kernel, the port's default) or
+    "jax" (the eager engine, the reference's default; it needs
+    ``PolicyConfig(rng="lcg")`` for the randomized policies).
     ``mesh_shape`` and ``prep`` raise until their slice lands."""
 
     n_servers: int = 100
@@ -139,10 +148,6 @@ class SimConfig:
             raise ValueError(
                 f"tiles={self.tiles!r} must be one of "
                 f"{tune_table.TILE_MODES}")
-        if self.backend == "jax":
-            raise NotImplementedError(
-                "backend='jax' (the eager scan engine) waits for ROADMAP "
-                "Queue A5; the port schedules with backend='kernel'")
         if self.mesh_shape is not None:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the sharded sweep waits "
@@ -324,6 +329,11 @@ def trace_straggler_mask(trace: ClusterTrace,
     return (trace.rates < thr).any(dim=-2)
 
 
+def _window_dt(cfg: SimConfig) -> float:
+    return (resolve_window_dt(cfg, cfg.scenario)
+            if cfg.scenario is not None else 0.0)
+
+
 def _observe(cfg: SimConfig) -> bool:
     # the degenerate static scenario never observes (static-model parity)
     return cfg.scenario is not None and cfg.scenario.name != "static"
@@ -376,18 +386,22 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
                   stream_batch=kops.sched_stream_batch,
                   stream_grid=kops.sched_stream_grid):
     """Stage 2: every stream in one kernel launch (plus the cross-client
-    merge under per_client).  Returns ``(chosen, probes, redirected,
+    merge under per_client), or on the eager engine under
+    ``cfg.backend == "jax"``.  Returns ``(chosen, probes, redirected,
     latencies, window_loads, phase)`` per trial in original request
     order; ``phase`` is the kernel's fused makespan (merged over the real
-    clients under per_client).  ``stream_batch``/``stream_grid`` as in
-    `engine.run_stream_batch`.
+    clients under per_client), the masked max of window-open time plus
+    latency on the eager per_client path, and None on the eager shared
+    log (`_post_trials` reduces it).  ``stream_batch``/``stream_grid``
+    as in `engine.run_stream_batch`.
 
     per_client: the window clamps to the per-client slice (a warning
     names both sizes), while the window timing (``window_dt``) keeps the
     configured window size; the probe sum is an integer sum over the
-    real clients."""
-    window_dt = (resolve_window_dt(cfg, cfg.scenario)
-                 if cfg.scenario is not None else 0.0)
+    real clients; on the eager engine the window loads are
+    `policy_core.masked_client_mean` at the resolved client tile, the
+    association the merge kernel keeps."""
+    window_dt = _window_dt(cfg)
     per_client = cfg.client_model == "per_client"
     # THE tile resolution point: the pair is resolved once, whichever mode
     # cfg.tiles selects, and threaded through every layer below
@@ -400,13 +414,15 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
         trial_tile=cfg.trial_tile, client_tile=cfg.client_tile)
     run = dict(policy=policy, log_cfg=log_cfg, traces=traces,
                window_dt=window_dt, observe=_observe(cfg),
-               trial_tile=trial_tile, stream_batch=stream_batch,
-               stream_grid=stream_grid)
+               trial_tile=trial_tile, backend=cfg.backend,
+               stream_batch=stream_batch, stream_grid=stream_grid)
+    eager = cfg.backend == "jax"
     if not per_client:
         res, metrics, _ = engine.run_stream_batch(
             states, works, seeds, window_size=cfg.window_size, **run)
+        phase = None if eager else metrics[:, policy_core.MET_MAKESPAN]
         return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
-                res.window_loads, metrics[:, policy_core.MET_MAKESPAN])
+                res.window_loads, phase)
     c, per, pad, win = _client_split_shape(cfg)
     if win < cfg.window_size:
         warnings.warn(
@@ -426,9 +442,20 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     probes = torch.where(cvalid, res.probe_msgs, 0).sum(
         dim=-1, dtype=torch.int32)
     first = lambda x: x.reshape(t, c * per)[:, :r]  # noqa: E731
+    if eager:
+        # the cross-client fold the merge kernel makes, as tensor code
+        wl = policy_core.masked_client_mean(
+            res.window_loads.movedim(1, 0), cvalid.T, client_tile)
+        w_open = ((torch.arange(per, device=seeds.device) // win).to(F32)
+                  * f32(window_dt, res.latencies))
+        comp = torch.where(run_works.valid, w_open + res.latencies,
+                           f32(0.0, res.latencies))
+        phase = comp.amax(dim=(1, 2))
+    else:
+        wl = merged.window_loads_mean
+        phase = merged.metrics[:, policy_core.MET_MAKESPAN]
     return (first(res.chosen), probes, first(res.redirected),
-            first(res.latencies), merged.window_loads_mean,
-            merged.metrics[:, policy_core.MET_MAKESPAN])
+            first(res.latencies), wl, phase)
 
 
 def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
@@ -437,9 +464,18 @@ def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
     """Stage 3: fold the scheduled streams into the (T,) `TrialResult`
     stack — the reference's vmapped ``_trial_result``.  The float
     per-server sum keeps the pinned `server_segment_sum` association; the
-    integer counts are exact under any order."""
+    integer counts are exact under any order.  ``phase_time=None``
+    reduces the makespan here: the max over requests of the window-open
+    time ``max(f32(w) * f32(window_dt), 0)`` plus the latency, as the
+    kernel's fused metric and the reference's ``_trial_result`` do."""
     m = cfg.n_servers
     t = chosen.shape[0]
+    if phase_time is None:
+        w_open = torch.clamp_min(
+            (torch.arange(cfg.n_requests, device=chosen.device)
+             // cfg.window_size).to(F32)
+            * f32(_window_dt(cfg), latencies), 0.0)
+        phase_time = (w_open + latencies).amax(dim=-1)
     win = (_client_split_shape(cfg)[3] if cfg.client_model == "per_client"
            else cfg.window_size)
     chosen64 = chosen.to(torch.int64)
@@ -464,14 +500,17 @@ def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
                log_cfg: LogConfig, device="cuda") -> TrialResult:
     """Run ``cfg.n_trials`` independent trials: prep, one kernel launch
     for the whole sweep (and one of the cross-client merge under
-    per_client), post.  The stages run under `tune.profile.stage`
-    ("prep", "sched", "post"), inert unless a profile is collected.
+    per_client) or the eager engine (``cfg.backend == "jax"``), post.
+    The stages run under `tune.profile.stage` ("prep", "sched", "post"),
+    inert unless a profile is collected.
 
     ``generator_or_seed`` is a ``torch.Generator`` on ``device`` or an int
     seed for a fresh one.  ``device`` defaults to the card and raises if
     none is visible; ``device="cpu"`` runs the plain PyTorch version."""
-    dev = resolve_device(device)
     policies.validate_policy(policy, cfg.n_servers)
+    if cfg.backend == "jax":
+        policies.check_eager_rng(policy)
+    dev = resolve_device(device)
     if isinstance(generator_or_seed, torch.Generator):
         gen = generator_or_seed
     else:

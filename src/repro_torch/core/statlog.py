@@ -2,8 +2,14 @@
 
 Counterpart of the JAX package's ``core/statlog.py``: the scheduling
 state (the packed ``(4, M)`` log plus the simulator's true-cluster
-fields) and its configuration.  The state carries any number of leading
-batch axes; the trial sweep uses ``(T,)``.
+fields), its configuration, and the Eq. (1)-(3) log maintenance the eager
+engine composes.  The state carries any number of leading batch axes;
+the trial sweep uses ``(T,)`` or ``(T, C)``.
+
+Every update is functional: it builds new tensors and never writes into
+the state's.  Under per_client the clients' states are ``expand``ed
+views of one trial's state, so an in-place write would reach every
+client at once.
 """
 
 from __future__ import annotations
@@ -84,3 +90,57 @@ def init_state(cfg: LogConfig, batch=None, device="cuda") -> SchedState:
         rates=torch.ones(lead + (m,), dtype=torch.float32, device=device),
         vclock=torch.zeros(lead, dtype=torch.float32, device=device),
         free_at=torch.zeros(lead + (m,), dtype=torch.float32, device=device))
+
+
+def apply_assignment(state: SchedState, server: torch.Tensor,
+                     length: torch.Tensor, cfg: LogConfig) -> SchedState:
+    """Book ``length`` MB on ``server`` (one per stream, shape (...)):
+    Eq. (1)-(3) through `policy_core.assignment_update`, and one more
+    request counted on that server."""
+    loads, probs = policy_core.assignment_update(
+        state.loads, state.probs, server, length, cfg.lam, state.n_servers)
+    n_assigned = state.n_assigned + policy_core.onehot(
+        server, state.n_servers).to(state.n_assigned.dtype)
+    return state._replace(
+        log=policy_core.pack(loads, probs, state.ewma_lat, state.est_rates),
+        n_assigned=n_assigned)
+
+
+def observe_completion(state: SchedState, server: torch.Tensor,
+                       mb_per_s: torch.Tensor, cfg: LogConfig) -> SchedState:
+    """Fold an observed service rate into the EWMA row and re-derive the
+    estimated rates — the one path that writes the ``est_rates`` row."""
+    ewma, est = policy_core.observe_update(state.ewma_lat, server, mb_per_s,
+                                           cfg.ewma_alpha)
+    return state._replace(
+        log=policy_core.pack(state.loads, state.probs, ewma, est))
+
+
+def advance_time(state: SchedState, dt: float, dec: torch.Tensor
+                 ) -> SchedState:
+    """Advance the virtual clock by ``dt`` seconds: drain every queue by
+    the precomputed `policy_core.window_decrements` row ``dec`` (a bare
+    subtract, clipped at empty) and re-derive ``free_at`` from the
+    residual queue at the current true rates."""
+    loads = policy_core.drain_loads(state.loads, state.rates, dt, dec=dec)
+    vclock = state.vclock + policy_core.const(dt, state.vclock)
+    free_at = vclock.unsqueeze(-1) + loads / torch.maximum(
+        state.rates, policy_core.const(1e-6, state.rates))
+    return state._replace(
+        log=policy_core.pack(loads, state.probs, state.ewma_lat,
+                             state.est_rates),
+        vclock=vclock, free_at=free_at)
+
+
+def estimated_latency(state: SchedState, server: torch.Tensor
+                      ) -> torch.Tensor:
+    """Seconds until a request just queued on ``server`` completes: its
+    whole queue (Eq. (1) already applied) over the true rate."""
+    return policy_core.estimated_latency(state.loads, state.rates, server)
+
+
+def renormalize(state: SchedState) -> SchedState:
+    """Re-project the probabilities onto the simplex (`lane_sum`)."""
+    return state._replace(log=policy_core.pack(
+        state.loads, policy_core.renormalize_probs(state.probs),
+        state.ewma_lat, state.est_rates))

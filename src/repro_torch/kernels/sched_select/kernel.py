@@ -30,6 +30,11 @@ POLICY_CODES = {"minload": 0, "two_random": 1, "ect": 2, "trh": 3, "rr": 4,
                 "two_choice": 5, "mlml": 6, "nltr": 7}
 MAX_WINDOW = 1024
 MAX_M_PAD = 1024
+# where inputs past the caps do run: the eager engine has no cap (nothing
+# dispatches there on its own)
+EAGER_NOTE = ("; SimConfig(backend='jax') or run_stream(backend='jax') "
+              "schedules them on the card with the eager engine, which has "
+              "no cap")
 # Warps per block of the stream kernel, by form: a launch shape only,
 # since streams are independent.  Measured on the H100 (PERF.md, §6):
 # the 1-D form's T=100 latency-bound streams read the same for ect at one
@@ -139,12 +144,14 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
     if not 1 <= window_size <= MAX_WINDOW:
         raise ValueError(f"window_size={window_size} must be in "
                          f"[1, {MAX_WINDOW}] for the CUDA stream kernel "
-                         "(its limit; the JAX reference has none)")
+                         "(its limit; the JAX reference has none)"
+                         f"{EAGER_NOTE}")
     if m_pad > MAX_M_PAD or m_pad % 128 or not 1 <= n_servers <= m_pad:
         raise ValueError(f"M_pad={m_pad} must be a multiple of 128 up to "
                          f"{MAX_M_PAD} holding n_servers={n_servers} for the "
                          "CUDA stream kernel (its limit of M_pad ≤ "
-                         f"{MAX_M_PAD}; the JAX reference has none)")
+                         f"{MAX_M_PAD}; the JAX reference has none)"
+                         f"{EAGER_NOTE}")
     _check("object_ids", object_ids, torch.int32, lead + (n,))
     _check("lengths", lengths, torch.float32, lead + (n,))
     _check("valid", valid, torch.int32, lead + (n,))

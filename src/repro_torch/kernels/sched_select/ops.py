@@ -130,6 +130,27 @@ def sched_stream_batch(object_ids: torch.Tensor, *args, **kw):
 sched_stream_batch_plain = functools.partial(_run, sched_stream_batch_ref)
 
 
+def sched_stream(object_ids: torch.Tensor, lengths: torch.Tensor,
+                 valid: torch.Tensor, table: torch.Tensor, seed: torch.Tensor,
+                 win_rates: torch.Tensor, **kw):
+    """One client's whole windowed stream: object_ids/lengths/valid (N,)
+    with N = W * window_size, table (4, M), seed () uint32 state, win_rates
+    (W, M); or a (C, ...) batch of them.  The keywords of
+    `sched_stream_batch`.  Returns (choices, latencies, final_table,
+    window_loads), without the metric row.
+
+    A wrapper over `sched_stream_batch` with the same rule: the CUDA
+    kernel for a CUDA tensor (one launch), the plain version for a CPU
+    one."""
+    single = object_ids.ndim == 1
+    args = (object_ids, lengths, valid, table, seed, win_rates)
+    if single:
+        args = tuple(x.unsqueeze(0) for x in args)
+    choices, lats, ftab, wloads, _ = sched_stream_batch(*args, **kw)
+    out = (choices, lats, ftab, wloads)
+    return tuple(x[0] for x in out) if single else out
+
+
 def _run_grid(fn, object_ids: torch.Tensor, *args, client_tile=None,
               merge_mean: bool = True, **kw):
     return _run(fn, object_ids, *args,

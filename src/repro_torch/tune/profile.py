@@ -119,8 +119,12 @@ def device_times(run: Callable[[], object], reps: int = 3,
         with torch.profiler.profile(activities=acts) as prof:
             run()
             _sync(dev)
+        # the kernels' own entries: an operator's entry repeats the
+        # device time of the kernels it launched
         times.append(sum(e.self_device_time_total
-                         for e in prof.key_averages()) / 1e6)
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+                     / 1e6)
     return sorted(times)
 
 

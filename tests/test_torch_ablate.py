@@ -153,7 +153,8 @@ def test_engine_ablate_levels_on_cpu():
         res, met, _ = run(ablate=level)
         if level == 0:
             for a, b in zip(res[1:], base[1:]):
-                assert torch.equal(a, b)
+                # the kernel path leaves the eager engine's rng field None
+                assert a is b is None or torch.equal(a, b)
             assert torch.equal(met, base_met)
             continue
         assert not met.any()

@@ -341,6 +341,117 @@ def test_stream_wrappers_do_not_synchronize(cuda_device):
     torch.cuda.synchronize()
 
 
+@pytest.mark.filterwarnings("ignore:per_client window clamp")
+@pytest.mark.parametrize("client_model", ["shared_log", "per_client"])
+@pytest.mark.parametrize("policy", ["ect", "mlml", "nltr", "trh", "rr",
+                                    "two_choice"])
+def test_eager_engine_on_card_equals_kernel_path(policy, client_model,
+                                                 cuda_device):
+    """`run_trials(backend="jax")` on the card, at a mid size, launches
+    none of the port's kernels and gives the kernel path's TrialResult bit
+    for bit on the same seed."""
+    cfg = simulate.SimConfig(
+        n_servers=100, n_requests=600, n_trials=8, window_size=100,
+        n_clients=40, client_model=client_model,
+        scenario=simulate.ScenarioConfig("transient"))
+    log = simulate.default_log_cfg(cfg)
+    pol = PolicyConfig(name=policy, threshold=0.05 if policy == "ect"
+                       else 5.0, rng="lcg")
+    kern = simulate.run_trials(4, cfg, pol, log)
+    before = dict(tkernel.LAUNCHES)
+    eager = simulate.run_trials(4, dataclasses.replace(cfg, backend="jax"),
+                                pol, log)
+    torch.cuda.synchronize()
+    assert tkernel.LAUNCHES == before
+    for f, a, b in zip(kern._fields, kern, eager):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"{policy}/{f}"
+
+
+@pytest.mark.parametrize("policy", ["ect", "mlml", "nltr", "trh", "rr",
+                                    "two_choice"])
+def test_run_window_does_not_synchronize(policy, cuda_device):
+    """The eager engine's per-request loop reads nothing back to the host
+    (torch's sync debug mode raises on a read): `run_window` on grouped
+    steps, (T,) and (T, C) states, with the completion feedback on."""
+    from repro_torch.core import engine, statlog
+    rng = np.random.default_rng(5)
+    for lead in ((6,), (3, 4)):
+        shape = lead + (40,)
+        work = engine.Workload(
+            torch.from_numpy(rng.integers(0, 30, shape).astype(
+                np.int32)).to(cuda_device),
+            torch.from_numpy(rng.uniform(1.0, 20.0, shape).astype(
+                np.float32)).to(cuda_device),
+            torch.from_numpy(rng.random(shape) > 0.1).to(cuda_device))
+        steps, _ = engine.group_by_object_with_map(work)
+        log_cfg = statlog.LogConfig(n_servers=37)
+        state = statlog.init_state(log_cfg, batch=lead[0],
+                                   device=cuda_device)
+        if len(lead) == 2:
+            state = statlog.SchedState(*(x[:, None].expand(
+                lead + x.shape[1:]) for x in state))
+        seeds = torch.arange(int(np.prod(lead)), device=cuda_device
+                             ).reshape(lead)
+        pol = PolicyConfig(name=policy, threshold=2.0, rng="lcg")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = engine.run_window(state, steps, policy=pol,
+                                    log_cfg=log_cfg, group_steps=False,
+                                    observe=True, rng0=seeds)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert res.chosen.shape == shape
+        assert int(res.state.n_assigned.sum()) == int(steps.valid.sum())
+
+
+@pytest.mark.parametrize("policy", ["ect", "nltr", "two_choice"])
+def test_sched_stream_on_card_matches_batch_rows(policy, cuda_device):
+    """`ops.sched_stream` on one stream launches the stream kernel once
+    and equals that stream's row of `sched_stream_batch`; the sequential
+    kernel path `run_stream(backend="kernel")` likewise."""
+    from repro_torch.core import engine, statlog
+    t, m, n_win, win = 4, 37, 3, 32
+    arrays = batch_case(t, m, n_win, win, seed=31)
+    ops_in = [torch.from_numpy(x.astype(np.int64) if x.dtype == np.uint32
+                               else x).to(cuda_device) for x in arrays]
+    kw = dict(KW, n_servers=m, window_size=win, policy=policy)
+    batch = tops.sched_stream_batch(*ops_in, **kw)
+    for i in range(t):
+        before = tkernel.LAUNCHES["sched_stream"]
+        one = tops.sched_stream(*(x[i] for x in ops_in), **kw)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES["sched_stream"] == before + 1
+        for a, b in zip(one, batch[:4]):
+            assert torch.equal(a, b[i])
+    log_cfg = statlog.LogConfig(n_servers=m, lam=KW["lam"])
+    pol = PolicyConfig(name=policy, threshold=KW["threshold"])
+    obj, lens, valid, tables, seeds, _ = ops_in
+    state = statlog.SchedState(
+        log=tables, n_assigned=torch.zeros((t, m), dtype=torch.int32,
+                                           device=cuda_device),
+        rates=torch.full((t, m), 100.0, device=cuda_device),
+        vclock=torch.zeros(t, device=cuda_device),
+        free_at=torch.zeros((t, m), device=cuda_device))
+    works = engine.Workload(obj, lens, valid != 0)
+    run = dict(policy=pol, log_cfg=log_cfg, window_size=win,
+               window_dt=KW["window_dt"], observe=True)
+    rows, _, _ = engine.run_stream_batch(state, works, seeds, **run)
+    for i in range(t):
+        before = tkernel.LAUNCHES["sched_stream"]
+        one = engine.run_stream(
+            statlog.SchedState(*(x[i] for x in state)),
+            engine.Workload(*(x[i] for x in works)), seeds[i],
+            backend="kernel", **run)
+        torch.cuda.synchronize()
+        assert tkernel.LAUNCHES["sched_stream"] == before + 1
+        for a, b in zip(one.state, rows.state):
+            assert torch.equal(a, b[i])
+        for a, b in zip(one[1:6], rows[1:6]):
+            assert torch.equal(a, b[i])
+
+
 def test_tune_cli_on_card_names_the_card(tmp_path, cuda_device):
     """`python -m repro_torch.tune --tune batch_ect` writes its winner with
     the card's name and power limit into the table it is pointed at."""

@@ -238,7 +238,6 @@ def test_run_trials_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize("fields,match", [
     (dict(prep="sequential"), "Queue A10"),
-    (dict(backend="jax"), "Queue A5"),
     (dict(mesh_shape=(2,)), "Queue A10"),
     (dict(mesh_shape=(2, 2)), "Queue A10"),
     (dict(tiles="tuned", trial_tile=4, mesh_shape=(4,)), "Queue A10"),
