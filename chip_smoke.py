@@ -48,11 +48,28 @@ arguments it
    shared log, and the same sweep per_client (200 clients, window 10
    after the clamp), each for the six engine policies, every
    `TrialResult` field held against the same prep scheduled by the plain
-   versions on the card; then the same two sweeps on the eager engine
+   versions on the card (the trials of seed 0, drawn from threefry keys
+   as the JAX package draws them, so they are its trials); then the
+   paper evaluation: (a) the threefry kernel against its plain version,
+   bit for bit, from 1 to 10^6 counters a key and over batched keys; (b)
+   the §4 prep (shared log with stragglers, per_client 200) drawn on the
+   card under torch's sync debug mode against the same prep drawn on
+   this machine's CPU: workloads, masks, traces, keys and seeds
+   bit-identical, the initial loads within one ulp, the count that
+   differs printed (the CPU tests hold the CPU's draws against JAX); (c)
+   `run_paper_eval(seed=0)` and `run_scenario_eval(seed=0)` at the §4
+   defaults on the kernel backend, counts zeroed before and read after
+   (31 stream kernel launches and the threefry draws), each label's mean
+   p99 and makespan and both walls; (d) the eager engine under
+   ``rng="jax"`` (trh, nltr, two_choice) at T = 4 and §4 widths on the
+   card against the CPU, the draws and every `TrialResult` field
+   bit-identical; (e) the prep's wall and its kernels by torch.profiler;
+   then the same two sweeps on the eager engine
    (``SimConfig(backend="jax")``, ``PolicyConfig(rng="lcg")`` for trh,
    nltr and two_choice) with the counts zeroed before and read after (no
-   launch of any of the port's kernels), every `TrialResult` field held
-   bit for bit against the kernel path's on the same seed and
+   launch of any of the port's kernels but the threefry draws), every
+   `TrialResult` field held bit for bit against the kernel path's on the
+   same seed and
    `core.analysis`'s load balance, straggler summary, both p99s and
    makespan printed for both; the sequential kernel path
    (`engine.run_stream(backend="kernel")`, one stream kernel launch per
@@ -76,7 +93,8 @@ arguments it
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
    plain versions and `run_trials` (wall and stages, medians of five) for
-   ``ect``: shared log, and per_client at 200 and at 64 clients; both
+   ``ect``: shared log, and per_client at 200 and at 64 clients; the
+   threefry kernel at the prep's widest call; both
    flash kernels, the plain version and PyTorch's
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    at the serving shape and at S = 2048 and 8192 (each also with the
@@ -115,6 +133,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import analysis, engine, policy_core  # noqa: E402
 from repro_torch.core import simulate  # noqa: E402
@@ -126,6 +145,8 @@ from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.sched_select import kernel as skernel  # noqa: E402
 from repro_torch.kernels.sched_select import ops as sops  # noqa: E402
 from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
+from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
+from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.tune import __main__ as tune_cli  # noqa: E402
@@ -136,6 +157,15 @@ from torch_parity import MERGE_CASES, merge_case, table_variant  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_TENSOR_FLOPS = 989e12
+# 32-bit integer operations: the data sheet's 67 TFLOP/s of float32 are
+# 128 lanes x 2 (a multiply-add) x 132 SMs x 1.98 GHz; an SM has half as
+# many INT32 lanes (Hopper white paper), one operation each a cycle
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
+# integer operations of one threefry2x32 hash of a counter pair: 20
+# rounds of an add, a rotate (one funnel shift) and an xor, five key
+# injections of three adds, two adds of the key and two xors of its
+# schedule, and the xor of the two words where the bits are taken
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2 + 1
 
 BODY_POLICIES = tuple(skernel.POLICY_CODES)
 # (T, M, W, window, table): a few streams; T above the 132 SMs at one warp per block; the window and M_pad
@@ -352,9 +382,9 @@ def once_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -657,12 +687,15 @@ def run_main_path(name, cfg, log, pols, dev, expect):
         before = all_counts()
         results[p] = simulate.run_trials(0, cfg, pol, log)
         step = {k: all_counts()[k] - before[k] for k in before}
-        if step != {k: int(k in expect) for k in before}:
+        if but_threefry(step) != {k: int(k in expect)
+                                  for k in but_threefry(before)} \
+                or step["threefry"] < 1:
             fail(f"{name} run_trials({p}) launched {step}, expected one "
-                 f"launch of each of {expect}")
+                 f"launch of each of {expect} and the threefry draws")
     torch.cuda.synchronize()
     counts = all_counts()
-    if counts != {k: len(pols) * int(k in expect) for k in counts}:
+    if but_threefry(counts) != {k: len(pols) * int(k in expect)
+                                for k in but_threefry(counts)}:
         fail(f"{name} main path launched {counts}")
     print(f"{name} main path: launches {counts}")
 
@@ -685,8 +718,8 @@ def run_main_path(name, cfg, log, pols, dev, expect):
 
 
 def prep(cfg, log, dev):
-    gen = torch.Generator(device=dev).manual_seed(0)
-    return simulate._prep_trials(gen, cfg, log, dev)
+    """The §4 prep of `run_trials(0, ...)`: the trials of seed 0."""
+    return simulate._prep_trials(simulate.trial_keys(0, cfg, dev), cfg, log)
 
 
 def recording(fn, store):
@@ -771,7 +804,7 @@ def run_tune_path(card):
     zero_counts()
     split = tune_profile.kernel_phase_profile(policy="ect")
     torch.cuda.synchronize()
-    counts = all_counts()
+    counts = but_threefry(all_counts())
     want = dict({k: 0 for k in counts}, sched_stream=4,
                 sched_stream_ablate=12)
     if counts != want:
@@ -851,16 +884,18 @@ def run_eager_path(name, cfg, log, pols, kernel_results):
         results[p] = simulate.run_trials(0, ecfg, pol, log)
     torch.cuda.synchronize()
     counts = all_counts()
-    if any(counts.values()):
-        fail(f"{name} eager engine launched {counts}, expected none")
+    if any(but_threefry(counts).values()):
+        fail(f"{name} eager engine launched {counts}, expected no kernel "
+             "but the threefry hash of its draws")
     for p, res in results.items():
         bad = differing(res, kernel_results[p])
         if bad:
             fail(f"{name} {p}: backend='jax' differs from backend='kernel' "
                  f"in {bad}")
     print(f"eager engine, {name}: run_trials(backend='jax') for "
-          f"{', '.join(results)} (rng='lcg'): launches {counts}; every "
-          "TrialResult field bit-identical to backend='kernel'")
+          f"{', '.join(results)} (rng='lcg'): launches {counts} (threefry: "
+          "the prep's draws and the LCG seeds); every TrialResult field "
+          "bit-identical to backend='kernel'")
     return results, counts
 
 
@@ -987,6 +1022,247 @@ def time_eager(runs, pols, card):
                   f"({prof_ms:.2f} ms)")
         print(f"  (walls {t1 - t0:.1f} s, profiled run and its trace "
               f"{t2 - t1:.1f} s)")
+
+
+# -- the paper evaluation: threefry keys on the card ---------------------------
+
+# (leading key shape, counters a key): 1 to 10^6 counters, up to 4,000 keys
+THREEFRY_CASES = (((1,), 1), ((1,), 7), ((100,), 2), ((100,), 2000),
+                  ((100, 3), 100), ((200, 20), 100), ((1,), 10 ** 6),
+                  ((4,), 10 ** 6))
+# the main path's widest hash: the object ids' randint of the §4 prep,
+# 100 trial keys split in two, 2,000 counters each, the words' xor
+THREEFRY_MAIN = ((100, 2), 2000)
+
+
+def check_threefry(dev):
+    """(a) The hash kernel against its plain version on the card, bit for
+    bit, for every case of `THREEFRY_CASES` in both output forms and with
+    a counter offset (fold_in's).  Returns the largest absolute
+    difference."""
+    gen = np.random.default_rng(19)
+    worst, cases = 0, 0
+    for lead, n in THREEFRY_CASES:
+        keys = torch.from_numpy(gen.integers(0, 2 ** 32, lead + (2,),
+                                             dtype=np.int64)).to(dev)
+        for count_lo, xor in ((0, False), (0, True), (0x7e3, False)):
+            before = tfkernel.LAUNCHES["threefry"]
+            got = tfops.threefry_counters(keys, n, count_lo, xor)
+            want = tfops.threefry_counters_plain(keys, n, count_lo, xor)
+            torch.cuda.synchronize()
+            if tfkernel.LAUNCHES["threefry"] != before + 1:
+                fail("threefry_counters on the card did not launch the "
+                     "kernel once")
+            if not torch.equal(got, want):
+                fail(f"threefry kernel differs from the plain version at "
+                     f"keys {lead}, n={n}, offset {count_lo}, xor={xor}")
+            worst = max(worst, int((got - want).abs().max().item()))
+            cases += 1
+    print(f"threefry kernel: {cases} cases (1 to 10^6 counters a key, up "
+          "to 4,000 keys, both output forms, a counter offset) "
+          "bit-identical to its plain version on the card")
+    return float(worst)
+
+
+def stream_seeds(cfg, k_sched):
+    """The kernels' LCG seeds of a prep's scheduler keys: per trial, or per
+    client of ``split(k_sched, C)`` under per_client."""
+    if cfg.client_model == "per_client":
+        k_sched = random.split(k_sched, cfg.n_clients)
+    return random.bits(k_sched)
+
+
+def check_prep_on_card(runs, dev):
+    """(b) The §4 prep on the card, under torch's sync debug mode (a read
+    back to the host raises), against the same prep drawn on this
+    machine's CPU: workloads, masks, traces, scheduler keys and LCG seeds
+    bit-identical, the log's other rows too, the initial loads within one
+    ulp (the normal's float64 log1p); prints the count of loads that
+    differ."""
+    for name, cfg, log in runs:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = simulate._prep_trials(simulate.trial_keys(0, cfg, dev),
+                                         cfg, log)
+            seeds = stream_seeds(cfg, card[5])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        cpu = simulate._prep_trials(simulate.trial_keys(0, cfg, "cpu"), cfg,
+                                    log)
+        rest = lambda p, sd: [p[1], *p[2], *p[3][1:],  # noqa: E731
+                              p[3].log[:, 1:], *(p[4] or ()), p[5], sd]
+        names = ["straggler_mask", "object_ids", "lengths", "valid",
+                 "n_assigned", "rates", "vclock", "free_at", "log rows 1-3",
+                 "trace times", "trace rates", "k_sched", "seeds"]
+        for f, a, b in zip(names, rest(card, seeds),
+                           rest(cpu, stream_seeds(cfg, cpu[5]))):
+            if a.shape != b.shape or not torch.equal(a.cpu(), b):
+                fail(f"{name} prep: {f} differs between the card and the "
+                     "CPU")
+        init, cinit = card[0].cpu().numpy(), cpu[0].numpy()
+        ulp = np.abs(init.view(np.int32).astype(np.int64)
+                     - cinit.view(np.int32).astype(np.int64))
+        if ulp.max() > 1:
+            fail(f"{name} prep: initial loads {ulp.max()} ulp apart")
+        print(f"paper eval (b), {name} prep (T={cfg.n_trials}, "
+              f"R={cfg.n_requests}, M={cfg.n_servers}, straggler_frac "
+              f"{cfg.straggler_frac}): no host sync on the card; workloads, "
+              "masks, traces, keys and seeds bit-identical to this machine's"
+              f" CPU; initial loads differing: {int((ulp > 0).sum())} of "
+              f"{ulp.size} (at most 1 ulp)")
+
+
+def label_line(label, res):
+    p99 = policy_core.nearest_rank_p99(
+        res.latencies, torch.ones_like(res.latencies, dtype=torch.bool))
+    return (f"{label} p99 {p99.mean().item():.4f} s, makespan "
+            f"{res.phase_time.mean().item():.4f} s")
+
+
+def run_evals(card):
+    """(c) `run_paper_eval(seed=0)` and `run_scenario_eval(seed=0)` at the
+    §4 defaults on the kernel backend, the launch counts zeroed just
+    before and read just after: one stream kernel launch per `run_trials`
+    (6 and 25), no other kernel but the threefry draws; then each once
+    more for its wall.  Prints each label's mean p99 and makespan.
+    Returns the counts."""
+    zero_counts()
+    paper = simulate.run_paper_eval(seed=0)
+    scen = simulate.run_scenario_eval(seed=0)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    want = dict({k: 0 for k in but_threefry(counts)}, sched_stream=31)
+    if but_threefry(counts) != want or counts["threefry"] < 31:
+        fail(f"the evaluations launched {counts}, expected {want} and the "
+             "threefry draws")
+    results = [(label, res) for label, res in paper.items()] + [
+        (f"{scn}/{p}", res) for scn, row in scen.items()
+        for p, res in row.items()]
+    for label, res in results:
+        if res.chosen.shape != (100, 2000) or not (
+                torch.isfinite(res.latencies).all()
+                and torch.isfinite(res.phase_time).all()):
+            fail(f"evaluation {label}: unexpected shapes or values")
+    walls = {}
+    for name, fn in (("run_paper_eval", simulate.run_paper_eval),
+                     ("run_scenario_eval", simulate.run_scenario_eval)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(seed=0)
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+    print(f"paper eval (c) on {card}: run_paper_eval(seed=0) "
+          f"{walls['run_paper_eval']:.1f} ms (6 run_trials), "
+          f"run_scenario_eval(seed=0) {walls['run_scenario_eval']:.1f} ms "
+          f"(25 run_trials), second calls, host clock; launches {counts}")
+    print("  run_paper_eval:    " + "; ".join(
+        label_line(k, v) for k, v in paper.items()))
+    for scn, row in scen.items():
+        print(f"  {scn:<16s}   " + "; ".join(
+            label_line(k, v) for k, v in row.items()))
+    return counts
+
+
+def check_eager_threefry(dev, card, pols=("trh", "nltr", "two_choice")):
+    """(d) The eager engine under ``rng="jax"`` at T = 4 and §4 widths on
+    the card against the same run on this machine's CPU: the drawn
+    candidates of every request bit-identical, and every `TrialResult`
+    field."""
+    cfg = simulate.SimConfig(n_trials=4, backend="jax",
+                             scenario=simulate.ScenarioConfig("transient"))
+    log = simulate.default_log_cfg(cfg)
+    for p in pols:
+        pol = PolicyConfig(name=p, threshold=5.0)
+        drawn = []
+        for d in (dev, torch.device("cpu")):
+            k_sched = prep(cfg, log, d)[5]
+            drawn.append(engine._jax_draws(
+                pol, random.split(k_sched, cfg.n_windows), cfg.window_size,
+                cfg.n_servers))
+        if not torch.equal(drawn[0].cpu(), drawn[1]):
+            fail(f"eager {p}: the rng='jax' draws differ between the card "
+                 "and the CPU")
+        t0 = time.perf_counter()
+        on_card = simulate.run_trials(0, cfg, pol, log)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        on_cpu = simulate.run_trials(0, cfg, pol, log, device="cpu")
+        t2 = time.perf_counter()
+        bad = [f for f, a, b in zip(on_card._fields, on_card, on_cpu)
+               if a.shape != b.shape or not torch.equal(a.cpu(), b)]
+        if bad:
+            fail(f"eager {p} rng='jax': the card differs from the CPU in "
+                 f"{bad}")
+        print(f"paper eval (d), eager {p} rng='jax' T=4 on {card}: "
+              f"{tuple(drawn[0].shape)} draws and every TrialResult field "
+              f"bit-identical to the CPU (card {(t1 - t0) * 1e3:.0f} ms, "
+              f"CPU {(t2 - t1) * 1e3:.0f} ms)")
+
+
+def profile_prep(runs, dev, card, reps=5):
+    """(e) The §4 prep's wall on the card (median of ``reps``, host clock
+    around a synchronize) and, by torch.profiler from the raw trace, the
+    kernels one prep launches and their device time; the threefry
+    launches by the wrapper's count."""
+    out = {}
+    for name, cfg, log in runs:
+        run = lambda: simulate._prep_trials(  # noqa: E731
+            simulate.trial_keys(0, cfg, dev), cfg, log)
+        run()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        before = tfkernel.LAUNCHES["threefry"]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        hashes = tfkernel.LAUNCHES["threefry"] - before
+        kernels = [e for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.duration_ns() for e in kernels) / 1e6
+        wall = sorted(walls)[reps // 2]
+        out[name] = dict(wall_ms=wall, kernels=len(kernels),
+                         threefry=hashes, busy_ms=busy)
+        print(f"paper eval (e), {name} prep on {card}: wall {wall:.3f} ms "
+              f"[{min(walls):.3f}-{max(walls):.3f}], median of {reps}; "
+              f"{len(kernels)} device kernels by torch.profiler, "
+              f"{hashes} of them threefry, device busy {busy:.3f} ms"
+              + ("" if busy else " (no device time in the trace: not "
+                 "measured)"))
+    return out
+
+
+def time_threefry(dev, card):
+    """The hash kernel at the main path's widest call (`THREEFRY_MAIN`),
+    queued and back to back (median of 5), its plain version once, and
+    its bound: the keys read and the words written once at the memory
+    rate, against `THREEFRY_OPS` integer operations a counter at
+    `INT32_OPS_PER_S`.  PyTorch has no call computing this hash."""
+    lead, n = THREEFRY_MAIN
+    keys = random.split(random.split(random.key(0, dev), lead[0]), lead[1])
+    call = lambda: tfops.threefry_counters(keys, n, xor=True)  # noqa: E731
+    q = steady_ms(queued_ms, call)
+    b = steady_ms(timed_ms, call)
+    plain_ms = once_ms(lambda: tfops.threefry_counters_plain(keys, n,
+                                                             xor=True))
+    counters = lead[0] * lead[1] * n
+    bytes_moved = keys.numel() * 8 + counters * 8
+    bound_ms, bound_by = bound(bytes_moved, counters * THREEFRY_OPS,
+                               INT32_OPS_PER_S)
+    print(f"threefry kernel on {card}, {lead[0] * lead[1]} keys x {n} "
+          f"counters (xor): {q[0]:.4f} [{q[1]:.4f}-{q[2]:.4f}]{held_note(q)} "
+          f"ms queued ({b[0]:.4f} back to back), median of 5; plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{bytes_moved} bytes, {counters * THREEFRY_OPS} int32 ops)")
+    return dict(ms=q[0], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # -- timing -------------------------------------------------------------------
@@ -1299,14 +1575,19 @@ def check_flash(dev):
 
 
 def zero_counts():
-    for k in skernel.LAUNCHES:
-        skernel.LAUNCHES[k] = 0
-    for k in fkernel.LAUNCHES:
-        fkernel.LAUNCHES[k] = 0
+    for counts in (skernel.LAUNCHES, fkernel.LAUNCHES, tfkernel.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def all_counts():
-    return {**skernel.LAUNCHES, **fkernel.LAUNCHES}
+    return {**skernel.LAUNCHES, **fkernel.LAUNCHES, **tfkernel.LAUNCHES}
+
+
+def but_threefry(counts):
+    """The counts of every kernel but the threefry hash, which every
+    simulation entry launches for its draws."""
+    return {k: v for k, v in counts.items() if k != "threefry"}
 
 
 def run_serve_path(card):
@@ -1580,7 +1861,8 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)}")
     warnings.filterwarnings("ignore", message=PER_CLIENT_NOTE)
 
-    sources = (skernel.SOURCE, fkernel.SOURCE, fkernel.WGMMA_SOURCE)
+    sources = (skernel.SOURCE, fkernel.SOURCE, fkernel.WGMMA_SOURCE,
+               tfkernel.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1643,6 +1925,19 @@ def main() -> None:
     e_s, e_m = check_per_client(pc_results, pc_cfg, pc_log, pols, dev)
     err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
 
+    # -- the paper evaluation on threefry keys -----------------------------
+    t_paper = time.perf_counter()
+    err_threefry = check_threefry(dev)
+    strag_cfg = dataclasses.replace(cfg, straggler_frac=0.1)
+    check_prep_on_card(
+        (("shared_log", strag_cfg, simulate.default_log_cfg(strag_cfg)),
+         ("per_client", pc_cfg, pc_log)), dev)
+    eval_counts = run_evals(card)
+    check_eager_threefry(dev, card)
+    prep_profile = profile_prep((("shared_log", cfg, log),
+                                 ("per_client", pc_cfg, pc_log)), dev, card)
+    print(f"paper eval phase: {time.perf_counter() - t_paper:.1f} s")
+
     # -- the eager engine (backend="jax") against the kernel path -----------
     t_eager = time.perf_counter()
     eager_counts = {}
@@ -1671,6 +1966,7 @@ def main() -> None:
 
     # -- timing: the stream kernel per policy, the rest for ect -----------
     t_1d = time_shared_log(cfg, log, pols, dev, card)
+    t_threefry = time_threefry(dev, card)
     t_grid, t_merge = time_per_client(pc_cfg, pc_log, pols, dev, card)
     # the JAX benchmark's own short-stream instance: 64 clients of 32
     # requests (benchmarks/sched_perf.py, per_client_phase_breakdown)
@@ -1713,7 +2009,13 @@ def main() -> None:
                launches=serve_counts[f"flash_attention_{r}"],
                max_abs_err=err_flash[r], **t_flash[r])
           for r, f in (("simt", "flash_attn.cu"),
-                       ("wgmma", "flash_attn_wgmma.cu")))]}))
+                       ("wgmma", "flash_attn_wgmma.cu"))),
+        dict(name="threefry2x32", route="cuda",
+             source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
+             replaces="src/repro/core/simulate.py:784 (jax.random's "
+                      "threefry2x32, which XLA runs: no pl.pallas_call)",
+             launches=eval_counts["threefry"], max_abs_err=err_threefry,
+             library_ms=None, prep=prep_profile, **t_threefry)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

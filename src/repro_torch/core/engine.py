@@ -18,9 +18,17 @@ client-side log.  Two backends run it:
   `select_target_rng`, `apply_threshold` and the `statlog` updates, one
   request position at a time, each step one batch of tensor ops over
   every stream; `run_stream` loops over the windows.  It runs no kernel
-  of its own and reads nothing back to the host inside its loops.  For
-  the randomized policies it needs ``PolicyConfig(rng="lcg")``; it is
-  then bit-exact with the kernel path on every output.
+  of its own but the threefry hash of its keys, and reads nothing back
+  to the host inside its loops.  The randomized policies draw from the
+  reference's threefry keys (``PolicyConfig(rng="jax")``, the default:
+  `split(key, n_windows)` per stream, `split(window_key, r)` per request
+  in plan order, every draw of a stream made before its first window)
+  or from the stream kernel's LCG (``rng="lcg"``), with which the eager
+  engine is bit-exact with the kernel path on every output.
+
+Every entry takes threefry keys (`repro_torch.random`, int64
+``(..., 2)``) where the reference does; a stream's LCG seed is
+``random.bits(key)``, as there.
 
 `run_stream_jit` of the reference is a ``jax.jit`` wrapper with no
 counterpart here.
@@ -32,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import policies as P
 from repro_torch.core import policy_core, statlog
 from repro_torch.core.policies import PolicyConfig, validate_policy
@@ -211,15 +220,29 @@ def _where_state(v: torch.Tensor, new: SchedState,
     return SchedState(*map(pick, new, old))
 
 
+def _jax_draws(policy: PolicyConfig, keys: torch.Tensor, r: int,
+               n_servers: int) -> Optional[torch.Tensor]:
+    """A randomized policy's ``rng="jax"`` draws for windows of ``r``
+    requests: the window keys ``keys`` (..., 2) split into one key per
+    request position (plan order), each drawn as the reference's
+    ``select_target`` draws it; (..., r, n_draws) int64.  None for a
+    policy that draws nothing from keys."""
+    if policy.name not in P.RANDOM_POLICIES or policy.rng != "jax":
+        return None
+    return P.draw_candidates(policy, random.split(keys, r), n_servers)
+
+
 def _schedule_window(state: SchedState, work: Workload, rng: torch.Tensor,
                      *, policy: PolicyConfig, log_cfg: LogConfig,
-                     observe: bool):
+                     observe: bool, drawn: Optional[torch.Tensor] = None):
     """The per-request loop of one window over grouped steps (..., R):
     the plan, then per position the target, the redirect guard, Eq.
     (1)-(3), the latency and the completion feedback; padding rows leave
-    the state as it was (the LCG advances on them too).  Returns
-    ``(state, rng, chosen int64, redirected, latencies)`` in step order,
-    before the window's renormalisation."""
+    the state as it was (the LCG advances on them too).  ``drawn``
+    (..., R, n_draws) holds a randomized policy's ``rng="jax"`` draws by
+    plan position (`_jax_draws`).  Returns ``(state, rng, chosen int64,
+    redirected, latencies)`` in step order, before the window's
+    renormalisation."""
     r = work.n_requests
     m = state.n_servers
     plan = P.plan_window(policy, state, work.object_ids, work.lengths,
@@ -235,8 +258,12 @@ def _schedule_window(state: SchedState, work: Workload, rng: torch.Tensor,
     chosen_at, lat_at = [], []
     for pos in range(r):
         ln, v = lens[..., pos], val[..., pos]
-        target, rng = P.select_target_rng(policy, plan, state, pos,
-                                          obj[..., pos], ln, rng)
+        if drawn is None:
+            target, rng = P.select_target_rng(policy, plan, state, pos,
+                                              obj[..., pos], ln, rng)
+        else:
+            target = P.select_drawn(policy, plan, state, pos, obj[..., pos],
+                                    drawn[..., pos, :].unbind(-1))
         chosen = P.apply_threshold(policy, state, defaults[..., pos],
                                    target, ln)
         new = statlog.apply_assignment(state, chosen, ln, log_cfg)
@@ -265,18 +292,21 @@ def _initial_rng(seed, lead, device) -> torch.Tensor:
     return seed.to(torch.int64) & 0xFFFFFFFF
 
 
-def run_window(state: SchedState, work: Workload, *, policy: PolicyConfig,
-               log_cfg: LogConfig, group_steps: bool = True,
-               observe: bool = False, rng0=None) -> ScheduleResult:
+def run_window(state: SchedState, work: Workload, key: torch.Tensor, *,
+               policy: PolicyConfig, log_cfg: LogConfig,
+               group_steps: bool = True, observe: bool = False,
+               rng0=None) -> ScheduleResult:
     """Schedule one time window's requests (..., R) against the log on the
     eager engine; ``chosen``/``redirected``/``latencies`` come back in the
     original request order (a step's requests share its decision).
 
-    ``observe`` folds each request's effective MB/s into the EWMA row
-    right after its assignment.  ``rng0`` (...) seeds the LCG of the
-    randomized policies (``rng="lcg"``); its final state is
-    ``ScheduleResult.rng``.  ``window_loads`` is the (..., 1, M) final
-    load row.  Grouping reads the longest object group back to the host
+    ``key`` (..., 2) is the window's threefry key: under ``rng="jax"`` a
+    randomized policy draws from ``split(key, R)``, one key per request
+    position in plan order, as the reference does.  ``observe`` folds
+    each request's effective MB/s into the EWMA row right after its
+    assignment.  ``rng0`` (...) seeds the LCG of the randomized policies
+    under ``rng="lcg"``; its final state is ``ScheduleResult.rng``.
+    ``window_loads`` is the (..., 1, M) final load row.  Grouping reads the longest object group back to the host
     once; the per-request loop reads nothing back."""
     validate_policy(policy, state.n_servers)
     orig = work
@@ -284,8 +314,10 @@ def run_window(state: SchedState, work: Workload, *, policy: PolicyConfig,
     if group_steps:
         work, req_to_step = group_by_object_with_map(work)
     rng = _initial_rng(rng0, tuple(state.log.shape[:-2]), state.log.device)
+    drawn = _jax_draws(policy, key, work.n_requests, state.n_servers)
     state, rng, chosen, redirected, latencies = _schedule_window(
-        state, work, rng, policy=policy, log_cfg=log_cfg, observe=observe)
+        state, work, rng, policy=policy, log_cfg=log_cfg, observe=observe,
+        drawn=drawn)
     if log_cfg.renorm:
         state = statlog.renormalize(state)
     if req_to_step is not None:
@@ -302,26 +334,31 @@ def run_window(state: SchedState, work: Workload, *, policy: PolicyConfig,
 
 def _eager_streams(state: SchedState, steps: Workload, val: torch.Tensor,
                    req_to_step: torch.Tensor, win_rates: torch.Tensor,
-                   seeds, *, policy: PolicyConfig, log_cfg: LogConfig,
-                   window_dt: float, observe: bool, r: int
+                   keys: torch.Tensor, *, policy: PolicyConfig,
+                   log_cfg: LogConfig, window_dt: float, observe: bool, r: int
                    ) -> ScheduleResult:
     """The eager engine over windowed streams: ``steps``, ``val`` and
     ``req_to_step`` as `_prep_streams` gives them, ``win_rates``
     (..., W, M) broadcasting against the states' leading shape (per-trial
-    rates carry a client axis of 1).  Per window: the rates in effect,
-    `_schedule_window`, the renormalisation, then the drain by the
-    window's precomputed decrements; one LCG state per stream carries
-    across the windows."""
-    n_win = steps.object_ids.shape[-2]
+    rates carry a client axis of 1), ``keys`` (..., 2) one per stream.
+    Per window: the rates in effect, `_schedule_window`, the
+    renormalisation, then the drain by the window's precomputed
+    decrements; one LCG state per stream, ``bits(key)``, carries across
+    the windows, and the ``rng="jax"`` draws of every window come from
+    ``split(key, W)`` before the first."""
+    n_win, window_size = steps.object_ids.shape[-2:]
     win_dec = policy_core.window_decrements(win_rates, window_dt)
-    rng = _initial_rng(seeds, tuple(state.log.shape[:-2]), state.log.device)
+    rng = random.bits(keys)
+    drawn = _jax_draws(policy, random.split(keys, n_win), window_size,
+                       state.n_servers)
     chosen, redirected, lats, wloads = [], [], [], []
     for w in range(n_win):
         state = state._replace(
             rates=win_rates[..., w, :].expand(state.rates.shape))
         state, rng, ch, rd, lat = _schedule_window(
             state, Workload(*(x[..., w, :] for x in steps)), rng,
-            policy=policy, log_cfg=log_cfg, observe=observe)
+            policy=policy, log_cfg=log_cfg, observe=observe,
+            drawn=None if drawn is None else drawn[..., w, :, :])
         if log_cfg.renorm:
             state = statlog.renormalize(state)
         if window_dt:
@@ -369,7 +406,7 @@ def grouped_latency_block(works: Workload, latencies: torch.Tensor,
     return g_lat.flatten(-2), steps.valid.flatten(-2)
 
 
-def run_stream(state: SchedState, work: Workload, seed, *,
+def run_stream(state: SchedState, work: Workload, key: torch.Tensor, *,
                policy: PolicyConfig, log_cfg: LogConfig, window_size: int,
                group_steps: bool = True,
                trace: Optional[ClusterTrace] = None, window_dt: float = 0.0,
@@ -379,8 +416,9 @@ def run_stream(state: SchedState, work: Workload, seed, *,
     (§3.2); padding is invalid.  Window ``w`` opens at virtual time
     ``w * window_dt``: with a ``trace`` its rates are looked up there, and
     after the window the queues drain for ``window_dt`` seconds.
-    ``observe`` defaults to on exactly when a trace is given.  ``seed``
-    (...) holds the uint32 LCG states (any integer dtype).
+    ``observe`` defaults to on exactly when a trace is given.  ``key``
+    (..., 2) holds each stream's threefry key; the stream's LCG seed is
+    ``random.bits(key)``, on both backends.
 
     ``backend="jax"`` (as in the reference, the default here) runs the
     eager engine over any leading batch axes; ``"kernel"`` runs the
@@ -394,7 +432,7 @@ def run_stream(state: SchedState, work: Workload, seed, *,
     if observe is None:
         observe = trace is not None
     if backend == "kernel":
-        return _run_stream_kernel(state, work, seed, policy=policy,
+        return _run_stream_kernel(state, work, key, policy=policy,
                                   log_cfg=log_cfg, window_size=window_size,
                                   group_steps=group_steps, trace=trace,
                                   window_dt=window_dt, observe=observe)
@@ -403,13 +441,14 @@ def run_stream(state: SchedState, work: Workload, seed, *,
     n_win, steps, val, req_to_step = _prep_streams(work, window_size,
                                                    group_steps)
     win_rates = _window_rates(state, trace, n_win, window_dt)
-    return _eager_streams(state, steps, val, req_to_step, win_rates, seed,
+    return _eager_streams(state, steps, val, req_to_step, win_rates, key,
                           policy=policy, log_cfg=log_cfg,
                           window_dt=window_dt, observe=observe,
                           r=work.n_requests)
 
 
-def _run_stream_kernel(state: SchedState, work: Workload, seed, *,
+def _run_stream_kernel(state: SchedState, work: Workload, key: torch.Tensor,
+                       *,
                        policy: PolicyConfig, log_cfg: LogConfig,
                        window_size: int, group_steps: bool,
                        trace: Optional[ClusterTrace], window_dt: float,
@@ -432,7 +471,7 @@ def _run_stream_kernel(state: SchedState, work: Workload, seed, *,
     flat = lambda x: x.reshape(lead + (-1,))  # noqa: E731
     choices, lats, table, wloads = kops.sched_stream(
         flat(steps.object_ids), flat(steps.lengths), flat(steps.valid),
-        state.log, seed, win_rates, n_servers=state.n_servers,
+        state.log, random.bits(key), win_rates, n_servers=state.n_servers,
         window_size=window_size, threshold=policy.threshold,
         lam=log_cfg.lam, alpha=log_cfg.ewma_alpha, window_dt=window_dt,
         policy=policy.name, observe=observe, renorm=log_cfg.renorm,
@@ -499,7 +538,7 @@ def _kernel_bookkeeping(states: SchedState, choices, lats, tables, wloads,
         window_loads=wloads)
 
 
-def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
+def run_stream_batch(states: SchedState, works: Workload, keys: torch.Tensor,
                      *, policy: PolicyConfig, log_cfg: LogConfig,
                      window_size: int,
                      traces: Optional[ClusterTrace] = None,
@@ -511,10 +550,11 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     """A batch of windowed streams scheduled in one kernel launch, or on
     the eager engine.
 
-    ``states``/``works``/``seeds`` carry a leading ``(T,)`` trial axis, or
+    ``states``/``works``/``keys`` carry a leading ``(T,)`` trial axis, or
     ``(T, C)`` trials × clients (the per_client model: each client
-    schedules its private slice against its own log).  ``seeds`` holds
-    uint32 LCG states (any integer dtype); ``traces`` (if given) are
+    schedules its private slice against its own log).  ``keys`` (...,
+    2) are the streams' threefry keys; the kernel's LCG seeds are their
+    ``random.bits``, as in the reference; ``traces`` (if given) are
     per-TRIAL `ClusterTrace`s, shared by a trial's clients.  Window ``w``
     opens at virtual time ``w * window_dt``; with a trace its rates are
     looked up there, and after the window the queues drain for
@@ -537,10 +577,10 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
     the card.
 
     ``backend="jax"`` schedules the same batch on the eager engine
-    (`run_stream`'s jax path over the batch axes; the randomized policies
-    need ``PolicyConfig(rng="lcg")``), bit-exact per stream with the
-    kernel path, and returns ``(result, None, None)``: no fused metric
-    rows and no merge.
+    (`run_stream`'s jax path over the batch axes), bit-exact per stream
+    with the kernel path (the randomized policies under
+    ``PolicyConfig(rng="lcg")``), and returns ``(result, None, None)``:
+    no fused metric rows and no merge.
 
     Returns ``(result, metrics, merged)``: a `ScheduleResult` with the
     leading batch axes on every field, the kernel's fused
@@ -581,11 +621,13 @@ def run_stream_batch(states: SchedState, works: Workload, seeds: torch.Tensor,
             win_rates = _window_rates(rate_states, traces, n_win, window_dt)
             if backend == "jax" and two_d:
                 win_rates = win_rates[:, None]
+        if backend == "kernel":
+            seeds = random.bits(keys)
     if backend == "jax":
         with tune_profile.stage("eager"):
             res = _eager_streams(
                 states, Workload(g_obj, g_lens, g_val), val, req_to_step,
-                win_rates, seeds, policy=policy, log_cfg=log_cfg,
+                win_rates, keys, policy=policy, log_cfg=log_cfg,
                 window_dt=window_dt, observe=observe, r=r)
         return res, None, None
     kw = dict(n_servers=m, window_size=window_size,

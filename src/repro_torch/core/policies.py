@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``core/policies.py``: the policy
 configuration and its validation, and the rules the eager engine
 (`core/engine.py`, ``backend="jax"``) composes — the window-start plan
 (`plan_window`), the per-request target (`select_target`,
-`select_target_rng`) and the redirect guard (`apply_threshold`).  The
+`select_target_rng`, from the draws of `draw_candidates` or the LCG
+through `select_drawn`) and the redirect guard (`apply_threshold`).  The
 stream kernel (`repro_torch.kernels.sched_select`) runs the same rules in
 its own body.  Every function takes any leading batch axes: a state's
 rows are (..., M), a window's requests (..., R), per-stream scalars (...).
@@ -20,10 +21,11 @@ rows are (..., M), a window's requests (..., R), per-stream scalars (...).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import policy_core
 from repro_torch.core.statlog import SchedState
 
@@ -50,11 +52,12 @@ class PolicyConfig:
     """Static configuration of a scheduling policy.
 
     ``rng`` is the eager engine's randomness source for the randomized
-    policies: ``"jax"`` (the reference's threefry keys, not ported: the
-    eager engine raises naming ROADMAP A7) or ``"lcg"`` (the stream
-    kernel's uint32 LCG, drawn from the stream's seed exactly as the
-    kernel draws it — the parity setting).  Deterministic policies and
-    the kernel backend ignore it."""
+    policies: ``"jax"`` (the reference's threefry keys, drawn by
+    `repro_torch.random` key for key as the reference draws them, the
+    default) or ``"lcg"`` (the stream kernel's uint32 LCG, drawn from the
+    stream's seed exactly as the kernel draws it — the parity setting with
+    the kernel backend).  Deterministic policies and the kernel backend
+    ignore it."""
 
     name: str = "trh"
     threshold: float = 0.0      # benefit required to redirect (MB; s for ect)
@@ -89,16 +92,6 @@ def validate_policy(cfg: PolicyConfig, n_servers: int) -> None:
             f"nltr needs 2**nltr_n <= n_servers: nltr_n={cfg.nltr_n} gives "
             f"K={cfg.k_sections} sections for n_servers={n_servers} "
             "(sections would collapse onto the same server range)")
-
-
-def check_eager_rng(cfg: PolicyConfig) -> None:
-    """The eager engine draws a randomized policy's candidates from the
-    LCG only: threefry keys (``rng="jax"``) are not ported."""
-    if cfg.name in RANDOM_POLICIES and cfg.rng != "lcg":
-        raise NotImplementedError(
-            f"{cfg.name} with rng={cfg.rng!r} needs the reference's threefry "
-            "keys, which wait for ROADMAP Queue A7; pass "
-            "PolicyConfig(rng='lcg') to draw from the stream kernel's LCG")
 
 
 class WindowPlan(NamedTuple):
@@ -166,13 +159,54 @@ def _two_random_min_load(state: SchedState, sorted_servers: torch.Tensor,
                        <= policy_core.take(state.loads, s2), s1, s2)
 
 
+def draw_candidates(cfg: PolicyConfig, keys: torch.Tensor,
+                    n_servers: int) -> torch.Tensor:
+    """The random draws of a randomized policy under ``rng="jax"``, one
+    request key per leading position: ``keys`` (..., 2) -> (...,
+    n_draws) int64, the reference's ``select_target`` draws key for key.
+    trh draws two positions in the lightest half and nltr two in a
+    section (``split(key)``, one ``randint`` each; nltr's section start
+    is added by `select_drawn`); two_choice draws ``probe_choices - 1``
+    servers (``split(key, probe_choices - 1)``).  No draw reads the
+    state, so the engine draws a whole window's, or stream's, at once."""
+    m = n_servers
+    if cfg.name == "two_choice":
+        return random.randint(random.split(keys, cfg.probe_choices - 1), (),
+                              0, m, dtype=torch.int64)
+    size = max(m // 2, 1) if cfg.name == "trh" else max(m // cfg.k_sections,
+                                                        1)
+    return random.randint(random.split(keys), (), 0, size,
+                          dtype=torch.int64)
+
+
+def select_drawn(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
+                 pos: int, object_id: torch.Tensor,
+                 drawn: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A randomized policy's target from its draws, one (...) tensor each
+    (a row of `draw_candidates` unbound, or `lcg_draws`): trh the lighter
+    of the two drawn positions of the sorted list, nltr the same inside
+    the request's section, two_choice the lightest of the default home
+    and the drawn servers (the first on a tie).  Returns (...) int64."""
+    if cfg.name == "trh":
+        return _two_random_min_load(state, plan.sorted_servers, *drawn)
+    if cfg.name == "nltr":
+        lo = plan.req_section[..., pos] * plan.sec_size
+        return _two_random_min_load(state, plan.sorted_servers,
+                                    lo + drawn[0], lo + drawn[1])
+    m = state.n_servers
+    cand = torch.stack([object_id.to(torch.int64) % m, *drawn], dim=-1)
+    best = torch.argmin(torch.gather(state.loads, -1, cand), dim=-1)
+    return policy_core.take(cand, best)
+
+
 def select_target(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
-                  pos: int, object_id: torch.Tensor, length: torch.Tensor
-                  ) -> torch.Tensor:
-    """Per-request target server (before the redirect guard) of a
-    deterministic policy; ``pos`` is the request's position in the
-    window's processing order.  Returns (...) int64.  The randomized
-    policies draw through `select_target_rng`."""
+                  pos: int, object_id: torch.Tensor, length: torch.Tensor,
+                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-request target server (before the redirect guard); ``pos`` is
+    the request's position in the window's processing order.  A
+    randomized policy draws its candidates from the request's threefry
+    ``key`` (..., 2) as the reference does; the others ignore it.
+    Returns (...) int64."""
     m = state.n_servers
     if cfg.name == "rr":
         return object_id.to(torch.int64) % m
@@ -182,43 +216,45 @@ def select_target(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
     if cfg.name == "ect":
         return torch.argmin(policy_core.ect_scores(
             state.loads, state.est_rates, length), dim=-1)
-    raise NotImplementedError(
-        f"select_target draws {cfg.name}'s candidates with the reference's "
-        "threefry keys, which wait for ROADMAP Queue A7; select_target_rng "
-        "draws them from the LCG under PolicyConfig(rng='lcg')")
+    if key is None:
+        raise ValueError(f"{cfg.name} draws its candidates from a request "
+                         "key: pass key=")
+    return select_drawn(cfg, plan, state, pos, object_id,
+                        draw_candidates(cfg, key, m).unbind(-1))
+
+
+def lcg_draws(cfg: PolicyConfig, rng: torch.Tensor, n_servers: int):
+    """The stream kernel's draws of a randomized policy from the uint32
+    LCG state ``rng`` (int64 holding uint32, (...)): trh and nltr one
+    `policy_core.two_random_draws`, two_choice ``probe_choices - 1``
+    single steps.  Returns ``(draws, rng)``, the draws a list of (...)
+    int64 tensors."""
+    m = n_servers
+    if cfg.name == "two_choice":
+        drawn = []
+        for _ in range(cfg.probe_choices - 1):
+            rng = policy_core.lcg_step(rng)
+            drawn.append(policy_core.lcg_mod(rng, m))
+        return drawn, rng
+    size = max(m // 2, 1) if cfg.name == "trh" else max(m // cfg.k_sections,
+                                                        1)
+    i1, i2, rng = policy_core.two_random_draws(rng, size)
+    return [i1, i2], rng
 
 
 def select_target_rng(cfg: PolicyConfig, plan: WindowPlan, state: SchedState,
                       pos: int, object_id: torch.Tensor,
                       length: torch.Tensor, rng: torch.Tensor):
     """`select_target` threading the uint32 LCG state ``rng`` (int64
-    tensor, (...)): under ``rng="lcg"`` trh and nltr take
-    `policy_core.two_random_draws` and two_choice ``probe_choices - 1``
-    single draws, exactly as the stream kernel does, on padding rows too.
-    Returns ``(target, rng)``; a deterministic policy passes ``rng``
-    through."""
-    if cfg.name not in RANDOM_POLICIES:
-        return select_target(cfg, plan, state, pos, object_id, length), rng
-    check_eager_rng(cfg)
-    m = state.n_servers
-    if cfg.name == "trh":
-        i1, i2, rng = policy_core.two_random_draws(rng, max(m // 2, 1))
-        return _two_random_min_load(state, plan.sorted_servers, i1,
-                                    i2), rng
-    if cfg.name == "nltr":
-        lo = plan.req_section[..., pos] * plan.sec_size
-        i1, i2, rng = policy_core.two_random_draws(rng, plan.sec_size)
-        return _two_random_min_load(state, plan.sorted_servers, lo + i1,
-                                    lo + i2), rng
-    # two_choice: the default home and probe_choices - 1 random servers,
-    # the lightest by live load (the first on a tie)
-    cand = [object_id.to(torch.int64) % m]
-    for _ in range(cfg.probe_choices - 1):
-        rng = policy_core.lcg_step(rng)
-        cand.append(policy_core.lcg_mod(rng, m))
-    cand = torch.stack(cand, dim=-1)
-    best = torch.argmin(torch.gather(state.loads, -1, cand), dim=-1)
-    return policy_core.take(cand, best), rng
+    tensor, (...)): under ``rng="lcg"`` a randomized policy takes
+    `lcg_draws` exactly as the stream kernel does, on padding rows too; a
+    deterministic policy passes ``rng`` through.  (Under ``rng="jax"`` a
+    randomized policy draws from keys: `select_target`, or
+    `draw_candidates` and `select_drawn`.)  Returns ``(target, rng)``."""
+    if cfg.name in RANDOM_POLICIES and cfg.rng == "lcg":
+        drawn, rng = lcg_draws(cfg, rng, state.n_servers)
+        return select_drawn(cfg, plan, state, pos, object_id, drawn), rng
+    return select_target(cfg, plan, state, pos, object_id, length), rng
 
 
 def apply_threshold(cfg: PolicyConfig, state: SchedState,

@@ -118,11 +118,13 @@ def init_table(m: int, batch=None, device="cuda") -> torch.Tensor:
     """Fresh log: zero loads, round-robin prior ``1/M``, no observations,
     unit estimated rates.  ``batch`` adds a leading trial axis.  On the
     card unless ``device="cpu"`` (`resolve_device` raises without one)."""
-    shape = (N_ROWS, m) if batch is None else (batch, N_ROWS, m)
-    t = torch.zeros(shape, dtype=F32, device=resolve_device(device))
-    t[..., ROW_PROBS, :] = torch.tensor(1.0 / m, dtype=F32)
-    t[..., ROW_EST, :] = 1.0
-    return t
+    row = (m,) if batch is None else (batch, m)
+    dev = resolve_device(device)
+    fill = lambda v: torch.full(row, v, dtype=F32, device=dev)  # noqa: E731
+    # built from fills, with no element written from the host (a write
+    # of a host value into a CUDA tensor waits for the device)
+    rows = {ROW_LOADS: 0.0, ROW_PROBS: 1.0 / m, ROW_EWMA: 0.0, ROW_EST: 1.0}
+    return torch.stack([fill(rows[r]) for r in range(N_ROWS)], dim=-2)
 
 
 def resolve_client_tile(n_clients: int, client_tile=None) -> int:
@@ -372,11 +374,66 @@ def renormalize_probs(probs: torch.Tensor) -> torch.Tensor:
     return p / lane_sum(p)
 
 
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding: the product of two float32
+    values is exact in float64, and the float64 sum rounds to float32
+    (twice, which differs from once only on a float32 tie)."""
+    return (a.to(torch.float64) * b + c).to(F32)
+
+
+def _f32_of(x: float) -> float:
+    return float(torch.tensor(x, dtype=F32))
+
+
+def _recip32(x: float) -> float:
+    """``1 / x`` in float32 arithmetic on float32 ``x``."""
+    one = torch.tensor(1.0, dtype=F32)
+    return float(one / torch.tensor(x, dtype=F32))
+
+
+# Cephes' expf, as the reference's compiler computes a float32 exp over an
+# array on the CPU: range reduction by ln 2 in two parts, a degree-5
+# polynomial, every multiply-add fused.
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``exp(x)`` for ``|x| < 88``, bit for bit the reference's
+    vectorised CPU exp (tests/test_torch_policy_core.py), and the same on
+    the CPU and on the card: every step is an IEEE operation or a
+    multiply-add rounded once (`_fma32`), so it does not depend on a
+    library's exp."""
+    log2e = _f32_of(1.44269504088896341)
+    n = torch.floor(_fma32(x, log2e, 0.5))
+    r = _fma32(-n, _f32_of(0.693359375), x)
+    r = _fma32(-n, _f32_of(-2.12194440e-4), r)
+    p = _fma32(torch.full_like(r, _f32_of(_EXP_POLY[0])), r,
+               _f32_of(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        p = _fma32(p, r, _f32_of(c))
+    y = _fma32(p, (r * r).to(torch.float64), r) + 1.0
+    return y * torch.exp2(n)
+
+
 def absorb_probs(loads: torch.Tensor, lam: float, m: int) -> torch.Tensor:
     """Probability row absorbing known initial loads,
-    ``p_i ∝ (1/M) · exp(-l_i / λ)``, normalised through `lane_sum`."""
-    p = torch.exp(-loads / f32(lam, loads)) / f32(m, loads)
-    return p / lane_sum(p)
+    ``p_i ∝ (1/M) · exp(-l_i / λ)``, normalised through a `lane_sum`
+    tree, computed as the reference's compiler computes its row on the
+    CPU: the divisions by the constants λ and M are products with their
+    float32 reciprocals, the exp is `exp_f32`, and the ``1/M`` product of
+    the lower half feeds the tree's first halving add as one multiply-add
+    (the upper half is the rounded product).  Bit for bit the reference's
+    row for M above 8 (tests/test_torch_policy_core.py)."""
+    e = exp_f32(loads.to(F32) * f32(_recip32(-lam), loads))
+    inv_m = _recip32(m)
+    p = e * f32(inv_m, e)
+    size = 1 << max(m - 1, 0).bit_length()
+    if size == 1:
+        return p / lane_sum(p)
+    h = size // 2
+    upper = torch.nn.functional.pad(p[..., h:], (0, size - m))
+    return p / lane_sum(_fma32(e[..., :h], inv_m, upper))
 
 
 def assignment_update(loads: torch.Tensor, probs: torch.Tensor,

@@ -16,8 +16,10 @@ temporal straggler scenarios, under one of two client models:
 `run_trials` composes three (T,)-batched stages:
 
 * `_prep_trials`  — workloads, initial loads, the absorbed ``(4, M)`` log
-  tables, the scenario rate traces and the LCG seeds ((T,) or (T, C)),
-  drawn from one ``torch.Generator``;
+  tables, the scenario rate traces and the scheduler keys, drawn from
+  the trials' threefry keys (`repro_torch.random`) as the reference
+  draws them, so one seed gives the reference's trials (the initial
+  loads to `random.NORMAL_ULP`, see there);
 * `_sched_trials` — every stream in ONE launch of the stream kernel, plus
   one of the cross-client merge under per_client
   (`engine.run_stream_batch`), with the tiles resolved once by
@@ -28,11 +30,9 @@ temporal straggler scenarios, under one of two client models:
 
 The port's default backend is ``"kernel"``; the reference's is ``"jax"``.
 Both give the same `TrialResult` bit for bit (the randomized policies
-under ``PolicyConfig(rng="lcg")``).
-
-The draws follow the reference's distributions, not its bits (the JAX
-package draws with threefry, which is not ported); `repro_torch.interop`
-carries the reference's prep across when a test needs identical inputs.
+under ``PolicyConfig(rng="lcg")``).  `run_one_trial` is the reference's
+sequential single-trial oracle; `run_scenario_eval` and `run_paper_eval`
+are its evaluation entry points, with its labels and defaults.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import random
 from repro_torch.core import engine, policies, policy_core, statlog
 from repro_torch.core.engine import ClusterTrace, Workload
 from repro_torch.core.policies import PolicyConfig
@@ -56,6 +57,8 @@ from repro_torch.tune import table as tune_table
 SIZE_CLASSES = ("small", "medium", "large", "mixed")
 SCENARIOS = ("static", "permanent_slow", "transient", "flapping",
              "correlated_rack")
+# the policies of the temporal sweep: the paper's log-assisted ones and ect
+SWEEP_POLICIES = ("rr", "mlml", "trh", "nltr", "ect")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,9 +96,12 @@ class SimConfig:
     or "tuned" (the `repro_torch.tune` table's winner; a miss degrades to
     "fused"); explicit tiles always win (`tune.table.resolve_sim_tiles`).
     ``backend`` is "kernel" (the stream kernel, the port's default) or
-    "jax" (the eager engine, the reference's default; it needs
-    ``PolicyConfig(rng="lcg")`` for the randomized policies).
-    ``mesh_shape`` and ``prep`` raise until their slice lands."""
+    "jax" (the eager engine, the reference's default; its randomized
+    policies draw from threefry keys under ``PolicyConfig(rng="jax")``
+    and from the kernel's LCG under ``rng="lcg"``).  ``prep`` is
+    "batched" (`_trial_setup` over the key batch) or "sequential" (one
+    trial at a time: the parity oracle).  ``mesh_shape`` raises until its
+    slice lands."""
 
     n_servers: int = 100
     n_clients: int = 200
@@ -148,14 +154,15 @@ class SimConfig:
             raise ValueError(
                 f"tiles={self.tiles!r} must be one of "
                 f"{tune_table.TILE_MODES}")
+        if self.prep not in ("batched", "sequential"):
+            raise ValueError(
+                f"prep={self.prep!r} must be 'batched' (the trial prep over "
+                "the key batch) or 'sequential' (one trial at a time, the "
+                "parity oracle)")
         if self.mesh_shape is not None:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the sharded sweep waits "
                 "for ROADMAP Queue A10")
-        if self.prep != "batched":
-            raise NotImplementedError(
-                f"prep={self.prep!r}: the sequential prep oracle waits for "
-                "ROADMAP Queue A10")
 
     @property
     def n_windows(self) -> int:
@@ -198,67 +205,68 @@ def expected_server_load_mb(cfg: SimConfig) -> float:
     return cfg.n_requests * mean_request_mb(cfg) / cfg.n_servers
 
 
-def _uniform(gen: torch.Generator, shape, lo: float, hi: float,
-             device) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, dtype=F32, device=device)
-    return f32(lo, u) + f32(hi - lo, u) * u
+def _lead(keys: torch.Tensor) -> tuple:
+    return tuple(keys.shape[:-1])
 
 
-def _choose_mask(gen: torch.Generator, batch: int, m: int, k: int,
-                 device) -> torch.Tensor:
-    """(batch, m) bool with ``k`` distinct servers per row, uniformly
-    chosen without replacement."""
-    keys = torch.rand((batch, m), generator=gen, device=device)
-    idx = torch.argsort(keys, dim=-1)[:, :k]
-    mask = torch.zeros((batch, m), dtype=torch.bool, device=device)
-    return mask.scatter_(1, idx, True)
+def _chosen_mask(idx: torch.Tensor, m: int) -> torch.Tensor:
+    """(..., m) bool, true at the (..., k) indices ``idx``."""
+    mask = torch.zeros(idx.shape[:-1] + (m,), dtype=torch.bool,
+                       device=idx.device)
+    return mask.scatter_(-1, idx, True)
 
 
-def sample_workload(gen: torch.Generator, cfg: SimConfig, batch: int,
-                    device) -> Workload:
-    """(T, R) synthetic request streams per §4's three size classes:
-    object ids uniform in ``[0, 8 M)``, lengths uniform in their class."""
+def sample_workload(keys: torch.Tensor, cfg: SimConfig) -> Workload:
+    """(..., R) synthetic request streams per §4's three size classes,
+    one stream per key (..., 2): object ids uniform in ``[0, 8 M)``,
+    lengths uniform in their class, drawn as the reference draws them
+    (``split(key, 5)``: object ids, class, small, medium, large)."""
     r = cfg.n_requests
-    shape = (batch, r)
-    object_ids = torch.randint(0, 8 * cfg.n_servers, shape, generator=gen,
-                               dtype=torch.int32, device=device)
-    small = _uniform(gen, shape, cfg.small_lo, cfg.small_hi, device)
-    med = _uniform(gen, shape, cfg.small_hi, cfg.medium_hi, device)
-    large = _uniform(gen, shape, cfg.medium_hi, cfg.large_hi, device)
-    if cfg.workload == "small":
-        lengths = small
-    elif cfg.workload == "medium":
-        lengths = med
-    elif cfg.workload == "large":
-        lengths = large
+    k = random.split(keys, 5)
+    key_of = lambda i: k[..., i, :]  # noqa: E731
+    object_ids = random.randint(key_of(0), (r,), 0, 8 * cfg.n_servers)
+    bounds = {"small": (2, cfg.small_lo, cfg.small_hi),
+              "medium": (3, cfg.small_hi, cfg.medium_hi),
+              "large": (4, cfg.medium_hi, cfg.large_hi)}
+    draw = lambda c: random.uniform(  # noqa: E731
+        key_of(bounds[c][0]), (r,), bounds[c][1], bounds[c][2])
+    if cfg.workload != "mixed":
+        lengths = draw(cfg.workload)
     else:
-        cls = torch.randint(0, 3, shape, generator=gen, device=device)
-        lengths = torch.where(cls == 0, small, torch.where(cls == 1, med,
-                                                           large))
+        cls = random.randint(key_of(1), (r,), 0, 3)
+        lengths = torch.where(cls == 0, draw("small"),
+                              torch.where(cls == 1, draw("medium"),
+                                          draw("large")))
     return Workload(object_ids=object_ids, lengths=lengths,
-                    valid=torch.ones(shape, dtype=torch.bool, device=device))
+                    valid=torch.ones(lengths.shape, dtype=torch.bool,
+                                     device=keys.device))
 
 
-def initial_loads(gen: torch.Generator, cfg: SimConfig, batch: int,
-                  device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T, M) Normal initial loads plus optional straggler injection: the
-    stragglers carry ``straggler_factor`` times the run's expected
-    per-server load on top."""
+def initial_loads(keys: torch.Tensor,
+                  cfg: SimConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., M) Normal initial loads plus optional straggler injection, one
+    row per key (..., 2) (``split(key)``: the normal, then the
+    stragglers, ``choice`` without replacement): the stragglers carry
+    ``straggler_factor`` times the run's expected per-server load on
+    top."""
     m = cfg.n_servers
-    noise = torch.randn((batch, m), generator=gen, dtype=F32, device=device)
-    noise = f32(cfg.init_load_std, noise) * noise
+    k = random.split(keys)
+    # the reference's ``std * normal``, the two constants folded as XLA
+    # folds them
+    noise = random.normal(k[..., 0, :], (m,), scale=cfg.init_load_std)
     big = f32(policy_core.BIG, noise)
+    # the clamp keeps the add's operand from being a product, as in the
+    # reference (no backend may contract it into a multiply-add)
     loads = f32(cfg.init_load_mean, noise) + torch.minimum(
         torch.maximum(noise, -big), big)
     loads = torch.clamp_min(loads, 0.0)
     n_strag = int(round(cfg.straggler_frac * m))
-    mask = torch.zeros((batch, m), dtype=torch.bool, device=device)
-    if n_strag > 0:
-        mask = _choose_mask(gen, batch, m, n_strag, device)
-        extra = f32(cfg.straggler_factor * expected_server_load_mb(cfg),
-                    loads)
-        loads = loads + torch.clamp_min(mask.to(F32) * extra, 0.0)
-    return loads, mask
+    if n_strag == 0:
+        return loads, torch.zeros(loads.shape, dtype=torch.bool,
+                                  device=keys.device)
+    mask = _chosen_mask(random.choice(k[..., 1, :], m, (n_strag,)), m)
+    extra = f32(cfg.straggler_factor * expected_server_load_mb(cfg), loads)
+    return loads + torch.clamp_min(mask.to(F32) * extra, 0.0), mask
 
 
 def absorb_initial_loads(state: SchedState, loads: torch.Tensor,
@@ -279,47 +287,55 @@ def resolve_window_dt(cfg: SimConfig, scn: ScenarioConfig) -> float:
     return per_window_mb / (cfg.n_servers * scn.base_rate_mb_s)
 
 
-def make_trace(gen: torch.Generator, cfg: SimConfig, scn: ScenarioConfig,
-               batch: int, device) -> ClusterTrace:
-    """(T,)-batched rate-event schedules; event times are fractions of
-    the stream horizon ``n_windows * window_dt``."""
+def make_trace(keys: torch.Tensor, cfg: SimConfig,
+               scn: ScenarioConfig) -> ClusterTrace:
+    """Rate-event schedules, one per key (..., 2): the slow subset is
+    ``choice(key, M, (n,), replace=False)``, or a rack at
+    ``randint(key, (), 0, M - rack + 1)``, as in the reference; event
+    times are fractions of the stream horizon ``n_windows * window_dt``.
+    The event times are filled on the device, with no element written
+    from the host."""
     m = cfg.n_servers
+    lead = _lead(keys)
+    dev = keys.device
     base = scn.base_rate_mb_s
     horizon = max(cfg.n_windows * resolve_window_dt(cfg, scn), 1e-6)
-    base_row = torch.full((batch, m), base, dtype=F32, device=device)
+    base_row = torch.full(lead + (m,), base, dtype=F32, device=dev)
 
     def times_of(values):
-        return torch.tensor(values, dtype=F32, device=device).expand(
-            batch, len(values))
+        return torch.stack([torch.full(lead, v, dtype=F32, device=dev)
+                            for v in values], dim=-1)
 
     if scn.name == "static":
-        return ClusterTrace(times=times_of([0.0]), rates=base_row[:, None])
+        return ClusterTrace(times=times_of([0.0]),
+                            rates=base_row.unsqueeze(-2))
     if scn.name == "correlated_rack":
         rack = min(scn.rack_size, m)
-        start = torch.randint(0, m - rack + 1, (batch, 1), generator=gen,
-                              device=device)
-        idx = torch.arange(m, device=device)
+        start = random.randint(keys, (), 0, m - rack + 1,
+                               dtype=torch.int64).unsqueeze(-1)
+        idx = torch.arange(m, device=dev)
         mask = (idx >= start) & (idx < start + rack)
     else:
         n_strag = max(int(round(scn.straggler_frac * m)), 1)
-        mask = _choose_mask(gen, batch, m, n_strag, device)
+        mask = _chosen_mask(random.choice(keys, m, (n_strag,)), m)
     slow_row = torch.where(mask, f32(base / scn.slow_factor, base_row),
                            base_row)
     if scn.name == "permanent_slow":
-        return ClusterTrace(times=times_of([0.0]), rates=slow_row[:, None])
+        return ClusterTrace(times=times_of([0.0]),
+                            rates=slow_row.unsqueeze(-2))
     if scn.name == "transient":
         return ClusterTrace(
             times=times_of([0.0, scn.onset * horizon, scn.recover * horizon]),
-            rates=torch.stack([base_row, slow_row, base_row], dim=1))
+            rates=torch.stack([base_row, slow_row, base_row], dim=-2))
     if scn.name == "flapping":
         n_ev = max(scn.n_flaps, 2)
-        times = (torch.arange(n_ev, dtype=F32, device=device)
-                 * f32(horizon / n_ev, base_row)).expand(batch, n_ev)
+        times = (torch.arange(n_ev, dtype=F32, device=dev)
+                 * f32(horizon / n_ev, base_row)).expand(lead + (n_ev,))
         rows = torch.stack([base_row if e % 2 == 0 else slow_row
-                            for e in range(n_ev)], dim=1)
+                            for e in range(n_ev)], dim=-2)
         return ClusterTrace(times=times, rates=rows)
     return ClusterTrace(times=times_of([0.0, scn.onset * horizon]),
-                        rates=torch.stack([base_row, slow_row], dim=1))
+                        rates=torch.stack([base_row, slow_row], dim=-2))
 
 
 def trace_straggler_mask(trace: ClusterTrace,
@@ -339,24 +355,50 @@ def _observe(cfg: SimConfig) -> bool:
     return cfg.scenario is not None and cfg.scenario.name != "static"
 
 
-def _prep_trials(gen: torch.Generator, cfg: SimConfig, log_cfg: LogConfig,
-                 device):
-    """Stage 1: ``(init_loads, straggler_mask, works, states, traces,
-    seeds)`` for the whole (T,) batch — the reference's vmapped
-    ``_trial_setup``, drawn batch-wide."""
-    t = cfg.n_trials
-    init, strag_mask = initial_loads(gen, cfg, t, device)
-    works = sample_workload(gen, cfg, t, device)
-    state = statlog.init_state(log_cfg, batch=t, device=device)
+def _trial_setup(keys: torch.Tensor, cfg: SimConfig, log_cfg: LogConfig):
+    """Per-trial simulation inputs for a key (2,), or a (T,) batch of
+    keys (T, 2): ``(init_loads, straggler_mask, work, state, trace,
+    k_sched)``, the reference's ``_trial_setup``: ``split(key, 3)`` into
+    the loads', the workload's and the scheduler's keys, and the trace
+    from ``fold_in(key, 0x7e3)`` (so the 3-way split stays that of the
+    static path)."""
+    k = random.split(keys, 3)
+    init, strag_mask = initial_loads(k[..., 0, :], cfg)
+    work = sample_workload(k[..., 1, :], cfg)
+    lead = _lead(keys)
+    state = statlog.init_state(log_cfg, batch=lead[0] if lead else None,
+                               device=keys.device)
     state = absorb_initial_loads(state, init, log_cfg)
-    traces = None
+    trace = None
     if cfg.scenario is not None:
-        traces = make_trace(gen, cfg, cfg.scenario, t, device)
-        state = state._replace(rates=traces.rates[:, 0].contiguous())
-    lead = (t, cfg.n_clients) if cfg.client_model == "per_client" else (t,)
-    seeds = torch.randint(0, 2 ** 32, lead, generator=gen,
-                          dtype=torch.int64, device=device)
-    return init, strag_mask, works, state, traces, seeds
+        trace = make_trace(random.fold_in(keys, 0x7e3), cfg, cfg.scenario)
+        state = state._replace(rates=trace.rates[..., 0, :].contiguous())
+    return init, strag_mask, work, state, trace, k[..., 2, :]
+
+
+def _stack(parts):
+    """Stack per-trial outputs (tensors, or named tuples of them, or
+    None) along a new leading trial axis."""
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(parts)
+    items = [_stack(list(x)) for x in zip(*parts)]
+    return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
+
+
+def _prep_trials(keys: torch.Tensor, cfg: SimConfig, log_cfg: LogConfig):
+    """Stage 1: ``(init_loads, straggler_mask, works, states, traces,
+    k_sched)`` for the (T, 2) trial keys.  ``cfg.prep == "batched"`` runs
+    `_trial_setup` once over the whole key batch; ``"sequential"`` runs
+    it one trial at a time at unbatched shapes and stacks the trials —
+    the reference's per-trial prep oracle, bit-identical to the batched
+    prep (every op here is elementwise or per row, and the Eq. (2)
+    normaliser goes through the pinned `policy_core.lane_sum`)."""
+    if cfg.prep == "sequential":
+        return _stack([_trial_setup(k, cfg, log_cfg) for k in keys])
+    return _trial_setup(keys, cfg, log_cfg)
 
 
 def _client_split_shape(cfg: SimConfig) -> Tuple[int, int, int, int]:
@@ -381,13 +423,16 @@ def _split_clients(works: Workload, c: int, per: int, pad: int) -> Workload:
 
 
 def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
-                  works: Workload, states: SchedState, seeds: torch.Tensor,
+                  works: Workload, states: SchedState, k_sched: torch.Tensor,
                   traces: Optional[ClusterTrace],
                   stream_batch=kops.sched_stream_batch,
                   stream_grid=kops.sched_stream_grid):
     """Stage 2: every stream in one kernel launch (plus the cross-client
     merge under per_client), or on the eager engine under
-    ``cfg.backend == "jax"``.  Returns ``(chosen, probes, redirected,
+    ``cfg.backend == "jax"``.  ``k_sched`` (T, 2) are the trials'
+    scheduler keys; under per_client each trial's are ``split(k_sched,
+    n_clients)``, one per client, as in the reference.  Returns
+    ``(chosen, probes, redirected,
     latencies, window_loads, phase)`` per trial in original request
     order; ``phase`` is the kernel's fused makespan (merged over the real
     clients under per_client), the masked max of window-open time plus
@@ -419,7 +464,7 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     eager = cfg.backend == "jax"
     if not per_client:
         res, metrics, _ = engine.run_stream_batch(
-            states, works, seeds, window_size=cfg.window_size, **run)
+            states, works, k_sched, window_size=cfg.window_size, **run)
         phase = None if eager else metrics[:, policy_core.MET_MAKESPAN]
         return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
                 res.window_loads, phase)
@@ -436,7 +481,7 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     run_states = SchedState(*(x[:, None].expand((t, c) + x.shape[1:])
                               for x in states))
     res, _, merged = engine.run_stream_batch(
-        run_states, run_works, seeds, window_size=win,
+        run_states, run_works, random.split(k_sched, c), window_size=win,
         client_tile=client_tile, **run)
     cvalid = run_works.valid.any(dim=-1)                      # (T, C)
     probes = torch.where(cvalid, res.probe_msgs, 0).sum(
@@ -446,7 +491,7 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
         # the cross-client fold the merge kernel makes, as tensor code
         wl = policy_core.masked_client_mean(
             res.window_loads.movedim(1, 0), cvalid.T, client_tile)
-        w_open = ((torch.arange(per, device=seeds.device) // win).to(F32)
+        w_open = ((torch.arange(per, device=k_sched.device) // win).to(F32)
                   * f32(window_dt, res.latencies))
         comp = torch.where(run_works.valid, w_open + res.latencies,
                            f32(0.0, res.latencies))
@@ -496,7 +541,22 @@ def _post_trials(cfg: SimConfig, init, strag_mask, works: Workload, traces,
                                    device=chosen.device))
 
 
-def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
+def _as_key(key_or_seed, device: torch.device) -> torch.Tensor:
+    """An int seed as ``random.key(seed)``; a key (2,) moved to
+    ``device``."""
+    if isinstance(key_or_seed, torch.Tensor):
+        return key_or_seed.to(device=device, dtype=torch.int64)
+    return random.key(int(key_or_seed), device)
+
+
+def trial_keys(key_or_seed, cfg: SimConfig, device) -> torch.Tensor:
+    """The (T, 2) keys of `run_trials`' trials: ``split(key, n_trials)``
+    of a key, or of ``random.key(seed)`` for an int seed."""
+    return random.split(_as_key(key_or_seed, resolve_device(device)),
+                        cfg.n_trials)
+
+
+def run_trials(key_or_seed, cfg: SimConfig, policy: PolicyConfig,
                log_cfg: LogConfig, device="cuda") -> TrialResult:
     """Run ``cfg.n_trials`` independent trials: prep, one kernel launch
     for the whole sweep (and one of the cross-client merge under
@@ -504,25 +564,55 @@ def run_trials(generator_or_seed, cfg: SimConfig, policy: PolicyConfig,
     The stages run under `tune.profile.stage` ("prep", "sched", "post"),
     inert unless a profile is collected.
 
-    ``generator_or_seed`` is a ``torch.Generator`` on ``device`` or an int
-    seed for a fresh one.  ``device`` defaults to the card and raises if
-    none is visible; ``device="cpu"`` runs the plain PyTorch version."""
+    ``key_or_seed`` is a threefry key (`repro_torch.random`, int64 (2,))
+    or an int seed for ``random.key(seed)``; the trials' keys are
+    ``split(key, n_trials)``, so a seed gives the reference's trials.
+    ``device`` defaults to the card and raises if none is visible;
+    ``device="cpu"`` runs the plain PyTorch versions."""
     policies.validate_policy(policy, cfg.n_servers)
-    if cfg.backend == "jax":
-        policies.check_eager_rng(policy)
     dev = resolve_device(device)
-    if isinstance(generator_or_seed, torch.Generator):
-        gen = generator_or_seed
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(generator_or_seed))
     with tune_profile.stage("prep"):
-        init, strag_mask, works, states, traces, seeds = _prep_trials(
-            gen, cfg, log_cfg, dev)
+        init, strag_mask, works, states, traces, k_sched = _prep_trials(
+            trial_keys(key_or_seed, cfg, dev), cfg, log_cfg)
     with tune_profile.stage("sched"):
-        sched = _sched_trials(cfg, policy, log_cfg, works, states, seeds,
+        sched = _sched_trials(cfg, policy, log_cfg, works, states, k_sched,
                               traces)
     with tune_profile.stage("post"):
         return _post_trials(cfg, init, strag_mask, works, traces, *sched)
+
+
+def run_one_trial(key_or_seed, cfg: SimConfig, policy: PolicyConfig,
+                  log_cfg: LogConfig, device="cuda") -> TrialResult:
+    """One trial at unbatched shapes: `_trial_setup`, one
+    `engine.run_stream` (on the kernel backend one launch of the stream
+    kernel) and the post step — the reference's sequential parity
+    oracle, which `run_trials` never calls.  ``key_or_seed`` is the
+    trial's key (a row of ``split(key, n_trials)`` gives that trial of
+    `run_trials`) or an int seed.  shared_log only, as in the reference.
+    Returns a `TrialResult` without the trial axis."""
+    if cfg.client_model != "shared_log":
+        raise ValueError(
+            "run_one_trial is the shared_log sequential reference; got "
+            f"client_model={cfg.client_model!r} (use backend='jax' "
+            "run_trials as the per_client comparator)")
+    policies.validate_policy(policy, cfg.n_servers)
+    dev = resolve_device(device)
+    init, strag_mask, work, state, trace, k_sched = _trial_setup(
+        _as_key(key_or_seed, dev), cfg, log_cfg)
+    res = engine.run_stream(state, work, k_sched, policy=policy,
+                            log_cfg=log_cfg, window_size=cfg.window_size,
+                            group_steps=True, trace=trace,
+                            window_dt=_window_dt(cfg), observe=_observe(cfg),
+                            backend=cfg.backend)
+    one = lambda x: None if x is None else type(x)(  # noqa: E731
+        *(a.unsqueeze(0) for a in x))
+    out = _post_trials(cfg, init.unsqueeze(0), strag_mask.unsqueeze(0),
+                       one(work), one(trace), res.chosen.unsqueeze(0),
+                       res.probe_msgs.unsqueeze(0),
+                       res.redirected.unsqueeze(0),
+                       res.latencies.unsqueeze(0),
+                       res.window_loads.unsqueeze(0), None)
+    return TrialResult(*(x[0] for x in out))
 
 
 def default_log_cfg(cfg: SimConfig, lam: Optional[float] = None) -> LogConfig:
@@ -531,3 +621,55 @@ def default_log_cfg(cfg: SimConfig, lam: Optional[float] = None) -> LogConfig:
     if lam is None:
         lam = max(4.0 * mean_request_mb(cfg), expected_server_load_mb(cfg))
     return LogConfig(n_servers=cfg.n_servers, lam=lam)
+
+
+def run_scenario_eval(seed: int = 0, cfg: Optional[SimConfig] = None,
+                      scenario_names: Tuple[str, ...] = SCENARIOS,
+                      policy_names: Tuple[str, ...] = SWEEP_POLICIES,
+                      threshold: float = 5.0,
+                      ect_threshold: float = 0.05,
+                      scenario: Optional[ScenarioConfig] = None,
+                      device="cuda") -> dict:
+    """The temporal sweep: {scenario: {policy: TrialResult}}, every run on
+    ``random.key(seed)``.  ``threshold`` is in MB for the paper's
+    policies and ``ect_threshold`` in expected seconds for ect;
+    ``scenario`` overrides the per-name defaults' common knobs."""
+    cfg = cfg or SimConfig()
+    base_scn = scenario or ScenarioConfig()
+    key = random.key(seed, resolve_device(device))
+    out: dict = {}
+    for scn_name in scenario_names:
+        s_cfg = dataclasses.replace(
+            cfg, scenario=dataclasses.replace(base_scn, name=scn_name))
+        log_cfg = default_log_cfg(s_cfg)
+        out[scn_name] = {
+            name: run_trials(key, s_cfg, PolicyConfig(
+                name=name,
+                threshold=ect_threshold if name == "ect" else threshold),
+                log_cfg, device)
+            for name in policy_names}
+    return out
+
+
+def run_paper_eval(seed: int = 0, cfg: Optional[SimConfig] = None,
+                   policy_names: Tuple[str, ...] = ("rr", "mlml", "trh",
+                                                    "nltr", "two_choice"),
+                   threshold: float = 5.0,
+                   nltr_ns: Tuple[int, ...] = (1, 2),
+                   device="cuda") -> dict:
+    """The paper's §4 evaluation: {label: TrialResult}, nltr once per
+    ``n`` of ``nltr_ns`` under the labels ``"1ltr"``, ``"2ltr"``, every
+    run on ``random.key(seed)``."""
+    cfg = cfg or SimConfig()
+    log_cfg = default_log_cfg(cfg)
+    key = random.key(seed, resolve_device(device))
+    out = {}
+    for name in policy_names:
+        if name == "nltr":
+            for n in nltr_ns:
+                pol = PolicyConfig(name="nltr", threshold=threshold, nltr_n=n)
+                out[f"{n}ltr"] = run_trials(key, cfg, pol, log_cfg, device)
+        else:
+            pol = PolicyConfig(name=name, threshold=threshold)
+            out[name] = run_trials(key, cfg, pol, log_cfg, device)
+    return out

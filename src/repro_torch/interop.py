@@ -4,12 +4,13 @@ Two kinds: a simulation's prepared inputs (`from_prep`), and a language
 model's configuration and parameters (`model_config_from_fields`,
 `lm_params_from_numpy`).
 
-The JAX package draws its trial inputs with threefry, which the port does
-not reproduce (its own `core.simulate._prep_trials` draws the same
-distributions from a ``torch.Generator``).  To hold the port's scheduling
-and post stages against the reference on identical inputs, a caller
-computes the reference's prep, turns every array into numpy, and hands
-them to `from_prep`: the result feeds `core.simulate._sched_trials` and
+The port draws the same trials as the JAX package from the same seed
+(`repro_torch.random` is its threefry, key for key), except that the
+initial loads' normal may differ from the reference's by an ulp
+(`random.NORMAL_ULP`).  To hold the port's scheduling and post stages
+against the reference on exactly its inputs, a caller computes the
+reference's prep, turns every array into numpy, and hands them to
+`from_prep`: the result feeds `core.simulate._sched_trials` and
 `_post_trials` directly.  Likewise a language model's parameters, drawn
 by the reference's ``init_lm``, load into the port's `LM` so both compute
 the same function.  This module takes numpy arrays and plain Python
@@ -39,8 +40,8 @@ class PrepInputs(NamedTuple):
     works: Workload                # (T, R) requests
     states: SchedState             # (T, ...) logs and cluster truth
     traces: Optional[ClusterTrace]  # (T, E) times, (T, E, M) rates
-    seeds: torch.Tensor            # (T,) or (T, C) int64 holding uint32
-    #                                LCG states
+    keys: torch.Tensor             # (T, 2) or (T, C, 2) int64 holding
+    #                                the uint32 words of threefry keys
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -48,7 +49,7 @@ def _t(a, dtype, device) -> torch.Tensor:
 
 
 def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
-              log, n_assigned, rates, vclock, free_at, seeds,
+              log, n_assigned, rates, vclock, free_at, keys,
               trace_times=None, trace_rates=None,
               device="cuda") -> PrepInputs:
     """Build `PrepInputs` from numpy arrays with a leading trial axis:
@@ -56,9 +57,11 @@ def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
     ``object_ids``/``lengths``/``valid`` (T, R); the state's ``log``
     (T, 4, M), ``n_assigned`` (T, M), ``rates`` (T, M), ``vclock`` (T,)
     and ``free_at`` (T, M); the optional trace's ``trace_times`` (T, E)
-    and ``trace_rates`` (T, E, M); and ``seeds`` uint32, (T,) for the
-    shared log or (T, C) for per_client (one state per client).  Lands on
-    the card unless ``device="cpu"`` (`resolve_device`)."""
+    and ``trace_rates`` (T, E, M); and ``keys``, the reference's
+    ``jax.random.key_data`` (uint32, (T, 2) — the trials' scheduler keys
+    ``k_sched`` that `core.simulate._sched_trials` takes — or (T, C, 2)
+    for the streams of `core.engine.run_stream_batch`).  Lands on the card
+    unless ``device="cpu"`` (`resolve_device`)."""
     device = resolve_device(device)
     f32, i32 = torch.float32, torch.int32
     works = Workload(object_ids=_t(object_ids, i32, device),
@@ -73,12 +76,12 @@ def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
     if trace_times is not None:
         traces = ClusterTrace(times=_t(trace_times, f32, device),
                               rates=_t(trace_rates, f32, device))
-    seeds64 = _t(np.asarray(seeds).astype(np.uint32).astype(np.int64),
-                 torch.int64, device)
+    keys64 = _t(np.asarray(keys).astype(np.uint32).astype(np.int64),
+                torch.int64, device)
     return PrepInputs(init_loads=_t(init_loads, f32, device),
                       straggler_mask=_t(straggler_mask, torch.bool, device),
                       works=works, states=states, traces=traces,
-                      seeds=seeds64)
+                      keys=keys64)
 
 
 def model_config_from_fields(d: Mapping[str, Any]) -> ModelConfig:

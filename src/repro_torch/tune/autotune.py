@@ -107,16 +107,15 @@ def tune_config(cfg, policy, log_cfg=None, *, reps: int = 3, seed: int = 0,
             return [float(timer(run))]
     form = "grid" if cfg.client_model == "per_client" else "batch"
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    _, _, works, states, traces, seeds = simulate._prep_trials(
-        gen, cfg, log_cfg, dev)
+    _, _, works, states, traces, k_sched = simulate._prep_trials(
+        simulate.trial_keys(seed, cfg, dev), cfg, log_cfg)
 
     results = []
     for tt, ct in candidate_tiles(cfg.n_trials, cfg.n_clients, form):
         cand = dataclasses.replace(cfg, trial_tile=tt, client_tile=ct,
                                    tiles="default")
         times = measure(lambda: simulate._sched_trials(
-            cand, policy, log_cfg, works, states, seeds, traces))
+            cand, policy, log_cfg, works, states, k_sched, traces))
         results.append((times, tt, ct))
 
     def median(r):

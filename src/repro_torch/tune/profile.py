@@ -153,13 +153,12 @@ def kernel_phase_profile(*, n_servers: int = 100, n_requests: int = 2000,
     pol = PolicyConfig(name=policy, threshold=threshold)
     log_cfg = LogConfig(n_servers=n_servers,
                         lam=simulate.default_log_cfg(cfg).lam)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    _, _, works, states, traces, seeds = simulate._prep_trials(
-        gen, cfg, log_cfg, dev)
+    _, _, works, states, traces, k_sched = simulate._prep_trials(
+        simulate.trial_keys(seed, cfg, dev), cfg, log_cfg)
 
     def runner(level: int) -> Callable[[], object]:
         return lambda: engine.run_stream_batch(
-            states, works, seeds, policy=pol, log_cfg=log_cfg,
+            states, works, k_sched, policy=pol, log_cfg=log_cfg,
             window_size=cfg.window_size, traces=traces, window_dt=0.0,
             observe=False, trial_tile=cfg.trial_tile, ablate=level)
 
@@ -183,14 +182,14 @@ def pipeline_stage_profile(cfg, policy, log_cfg, *, reps: int = 3,
     from repro_torch.device import resolve_device
 
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     with collect() as stages:
         with stage("prep"):
-            prep = simulate._prep_trials(gen, cfg, log_cfg, dev)
-        init, strag_mask, works, states, traces, seeds = prep
+            prep = simulate._prep_trials(
+                simulate.trial_keys(seed, cfg, dev), cfg, log_cfg)
+        init, strag_mask, works, states, traces, k_sched = prep
         with stage("sched"):
             sched = simulate._sched_trials(cfg, policy, log_cfg, works,
-                                           states, seeds, traces)
+                                           states, k_sched, traces)
         with stage("post"):
             simulate._post_trials(cfg, init, strag_mask, works, traces,
                                   *sched)
@@ -198,6 +197,6 @@ def pipeline_stage_profile(cfg, policy, log_cfg, *, reps: int = 3,
         "prep_s": stages["prep"],
         "post_s": stages["post"],
         "sched_s": median_time(lambda: simulate._sched_trials(
-            cfg, policy, log_cfg, works, states, seeds, traces), reps=reps,
+            cfg, policy, log_cfg, works, states, k_sched, traces), reps=reps,
             device=dev),
     }

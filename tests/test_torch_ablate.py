@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro.kernels.sched_select import ops as jops
+from repro_torch import random
 from repro_torch.core import engine as tengine
 from repro_torch.core import statlog as tstatlog
 from repro_torch.core.policies import PolicyConfig
@@ -144,8 +145,9 @@ def test_engine_ablate_levels_on_cpu():
         a.astype(np.int64) if a.dtype == np.uint32 else a) for a in arrays)
     log = tstatlog.LogConfig(n_servers=M)
     st = tstatlog.init_state(log, batch=T, device="cpu")
+    keys = random.split(random.key(13, device="cpu"), T)
     run = lambda **kw: tengine.run_stream_batch(  # noqa: E731
-        st, tengine.Workload(obj, lens, valid), seeds,
+        st, tengine.Workload(obj, lens, valid), keys,
         policy=PolicyConfig(name="nltr"), log_cfg=log,
         window_size=WIN, **kw)
     base, base_met, _ = run()

@@ -7,9 +7,11 @@ its own kernel path.
 Inputs are made with numpy from a seed: object ids from a narrow range
 (windows hold duplicate objects, triples included), about a tenth of the
 requests invalid, a padded last window (R = 250 over windows of 60), and
-a trace with an event exactly at a window's open.  The LCG seeds are
-``jax.random.bits`` of the keys the reference consumes; the randomized
-policies run under ``PolicyConfig(rng="lcg")`` on both sides.
+a trace with an event exactly at a window's open.  Both sides take the
+same threefry keys (the port derives the LCG seeds from them with
+`repro_torch.random.bits`, as the reference does); the randomized
+policies run under ``PolicyConfig(rng="lcg")`` on both sides here
+(``rng="jax"`` is held in tests/test_torch_policies.py).
 
 Against the reference: choices, redirected, latencies, window loads,
 loads, ``n_assigned``, ``vclock``, ``free_at``, probe counts and the LCG
@@ -103,6 +105,12 @@ def _logs(renorm, m=M):
     return jstatlog.LogConfig(**kw), tstatlog.LogConfig(**kw)
 
 
+def _tk(keys):
+    """The reference's keys as the port's int64 (..., 2) key tensor."""
+    return torch.from_numpy(np.asarray(jax.random.key_data(keys)).astype(
+        np.int64))
+
+
 def _jw(w):
     return jengine.Workload(*map(jnp.asarray, w))
 
@@ -175,12 +183,11 @@ def test_run_stream_matches_reference(case):
                   )(_js(st), _jw(work), keys, trace_j)
     kw = dict(policy=tp, log_cfg=tlog, window_size=WIN, window_dt=dt,
               observe=observe)
-    got = tengine.run_stream(_ts(st), _tw(work), torch.from_numpy(
-        seeds.astype(np.int64)), trace=trace_t, **kw)
+    got = tengine.run_stream(_ts(st), _tw(work), _tk(keys), trace=trace_t,
+                             **kw)
     assert_result(got, ref, f"{name} run_stream (T,)")
     batch, met, merged = tengine.run_stream_batch(
-        _ts(st), _tw(work), torch.from_numpy(seeds.astype(np.int64)),
-        traces=trace_t, backend="jax", **kw)
+        _ts(st), _tw(work), _tk(keys), traces=trace_t, backend="jax", **kw)
     assert met is None and merged is None
     assert_result(batch, ref, f"{name} run_stream_batch jax (T,)")
     # unbatched, eager and through the sequential kernel path
@@ -191,8 +198,8 @@ def test_run_stream_matches_reference(case):
         if with_trace else None
     for backend in ("jax", "kernel"):
         got1 = tengine.run_stream(
-            _ts(st1), _tw(tuple(map(one, work))),
-            torch.tensor(int(seeds[i])), trace=tr1, backend=backend, **kw)
+            _ts(st1), _tw(tuple(map(one, work))), _tk(keys)[i], trace=tr1,
+            backend=backend, **kw)
         assert_result(got1, _row(ref, i), f"{name} run_stream {backend}",
                       rng=backend == "jax")
 
@@ -214,8 +221,8 @@ def test_run_stream_batch_clients_matches_reference(name):
         _js(st), _jw(work), keys,
         jengine.ClusterTrace(jnp.asarray(times), jnp.asarray(trates)))
     got, met, merged = tengine.run_stream_batch(
-        _ts(st), _tw(work), torch.from_numpy(seeds.astype(np.int64)),
-        policy=tp, log_cfg=tlog, window_size=win,
+        _ts(st), _tw(work), _tk(keys), policy=tp, log_cfg=tlog,
+        window_size=win,
         traces=tengine.ClusterTrace(torch.from_numpy(times),
                                     torch.from_numpy(trates)),
         window_dt=DT, observe=True, backend="jax")
@@ -235,14 +242,15 @@ def test_run_window_matches_reference(name, group_steps):
         s, w, k, policy=jp, log_cfg=jlog, group_steps=group_steps,
         observe=True, rng0=r0)))(_js(st), _jw(work), keys,
                                  jnp.asarray(seeds))
-    got = tengine.run_window(_ts(st), _tw(work), policy=tp, log_cfg=tlog,
-                             group_steps=group_steps, observe=True,
+    got = tengine.run_window(_ts(st), _tw(work), _tk(keys), policy=tp,
+                             log_cfg=tlog, group_steps=group_steps,
+                             observe=True,
                              rng0=torch.from_numpy(seeds.astype(np.int64)))
     assert_result(got, ref, f"{name} run_window")
     got0 = tengine.run_window(
         _ts({k: v[0] for k, v in st.items()}),
-        _tw(tuple(x[0] for x in work)), policy=tp, log_cfg=tlog,
-        group_steps=group_steps, observe=True,
+        _tw(tuple(x[0] for x in work)), _tk(keys)[0], policy=tp,
+        log_cfg=tlog, group_steps=group_steps, observe=True,
         rng0=torch.tensor(int(seeds[0])))
     assert_result(got0, _row(ref, 0), f"{name} run_window unbatched")
 
@@ -265,7 +273,7 @@ def test_grouped_latency_block_matches_reference(group_steps):
                                  torch.from_numpy(trates))
     seeds_t = torch.from_numpy(seeds.astype(np.int64))
     res, met, _ = tengine.run_stream_batch(
-        _ts(st), _tw(work), seeds_t, policy=tp, log_cfg=tlog,
+        _ts(st), _tw(work), _tk(keys), policy=tp, log_cfg=tlog,
         window_size=WIN, traces=trace, window_dt=DT)
     if group_steps:
         bl, bv = tengine.grouped_latency_block(_tw(work), res.latencies,

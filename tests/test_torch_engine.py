@@ -3,8 +3,9 @@
 The same states, workloads and traces (made with numpy from a seed) go
 through the reference's ``run_stream_batch(backend="kernel")`` — its
 Pallas kernel in interpret mode — and the port's ``run_stream_batch`` on
-the CPU (its plain kernel version).  The LCG seeds are computed on the
-test side with ``jax.random.bits`` from the keys the reference consumes.
+the CPU (its plain kernel version).  Both take the same threefry keys;
+the port derives the LCG seeds from them with `repro_torch.random.bits`,
+as the reference does with ``jax.random.bits``.
 Object ids are drawn from a narrow range so windows hold duplicate
 objects, triples included, which exercises the step grouping's float
 sums."""
@@ -76,8 +77,6 @@ def test_run_stream_batch_matches_reference(policy):
     obj, lens, valid, st, times, trace_rates = _inputs(seed=21)
     thr = 0.05 if policy == "ect" else 4.0
     keys = jax.random.split(jax.random.key(5), T)
-    seeds = np.asarray(jax.vmap(
-        lambda k: jax.random.bits(k, dtype=jnp.uint32))(keys))
     log_cfg = dict(n_servers=M, lam=50.0)
     ref, ref_met, _ = jengine.run_stream_batch(
         jstatlog.SchedState(**{k: jnp.asarray(v) for k, v in st.items()}),
@@ -93,7 +92,8 @@ def test_run_stream_batch_matches_reference(policy):
                                for k, v in st.items()}),
         tengine.Workload(torch.from_numpy(obj), torch.from_numpy(lens),
                          torch.from_numpy(valid)),
-        torch.from_numpy(seeds.astype(np.int64)),
+        torch.from_numpy(np.asarray(jax.random.key_data(keys)).astype(
+            np.int64)),
         policy=PolicyConfig(name=policy, threshold=thr),
         log_cfg=tstatlog.LogConfig(**log_cfg), window_size=WIN,
         traces=tengine.ClusterTrace(torch.from_numpy(times),
@@ -142,7 +142,8 @@ def test_run_stream_batch_rejects_client_axis():
                              torch.ones((2, 3, 10)),
                              torch.ones((2, 3, 10), dtype=torch.bool))
     with pytest.raises(ValueError, match=r"\(T,\) or \(T, C\)"):
-        tengine.run_stream_batch(st, works, torch.zeros(2, dtype=torch.long),
+        tengine.run_stream_batch(st, works,
+                                 torch.zeros((2, 2), dtype=torch.long),
                                  policy=PolicyConfig(name="rr"),
                                  log_cfg=tstatlog.LogConfig(n_servers=8),
                                  window_size=5)

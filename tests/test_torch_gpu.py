@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import random
 from repro_torch.configs import get_config
 from repro_torch.core import simulate
 from repro_torch.core.policies import PolicyConfig
@@ -115,10 +116,10 @@ def test_run_trials_on_card_matches_plain(policy, cuda_device):
     res = simulate.run_trials(3, cfg, pol, log)
     torch.cuda.synchronize()
     assert tkernel.LAUNCHES["sched_stream"] == before + 1
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    prep = simulate._prep_trials(gen, cfg, log, cuda_device)
-    init, mask, works, states, traces, seeds = prep
-    sched = simulate._sched_trials(cfg, pol, log, works, states, seeds,
+    prep = simulate._prep_trials(
+        simulate.trial_keys(3, cfg, cuda_device), cfg, log)
+    init, mask, works, states, traces, k_sched = prep
+    sched = simulate._sched_trials(cfg, pol, log, works, states, k_sched,
                                    traces,
                                    stream_batch=tops.sched_stream_batch_plain)
     plain = simulate._post_trials(cfg, init, mask, works, traces, *sched)
@@ -206,12 +207,11 @@ def test_per_client_run_trials_on_card_matches_plain(policy, cuda_device):
     assert tkernel.LAUNCHES["sched_stream_grid"] == \
         before["sched_stream_grid"] + 1
     assert tkernel.LAUNCHES["client_merge"] == before["client_merge"] + 1
-    gen = torch.Generator(device=cuda_device).manual_seed(3)
-    init, mask, works, states, traces, seeds = simulate._prep_trials(
-        gen, cfg, log, cuda_device)
+    init, mask, works, states, traces, k_sched = simulate._prep_trials(
+        simulate.trial_keys(3, cfg, cuda_device), cfg, log)
     with pytest.warns(UserWarning, match="window clamp"):
         sched = simulate._sched_trials(
-            cfg, pol, log, works, states, seeds, traces,
+            cfg, pol, log, works, states, k_sched, traces,
             stream_grid=tops.sched_stream_grid_plain)
     plain = simulate._post_trials(cfg, init, mask, works, traces, *sched)
     for f in res._fields:
@@ -372,7 +372,8 @@ def test_eager_engine_on_card_equals_kernel_path(policy, client_model,
 def test_run_window_does_not_synchronize(policy, cuda_device):
     """The eager engine's per-request loop reads nothing back to the host
     (torch's sync debug mode raises on a read): `run_window` on grouped
-    steps, (T,) and (T, C) states, with the completion feedback on."""
+    steps, (T,) and (T, C) states, with the completion feedback on, the
+    randomized policies drawing from the LCG and from threefry keys."""
     from repro_torch.core import engine, statlog
     rng = np.random.default_rng(5)
     for lead in ((6,), (3, 4)):
@@ -392,18 +393,22 @@ def test_run_window_does_not_synchronize(policy, cuda_device):
                 lead + x.shape[1:]) for x in state))
         seeds = torch.arange(int(np.prod(lead)), device=cuda_device
                              ).reshape(lead)
-        pol = PolicyConfig(name=policy, threshold=2.0, rng="lcg")
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            res = engine.run_window(state, steps, policy=pol,
-                                    log_cfg=log_cfg, group_steps=False,
-                                    observe=True, rng0=seeds)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        assert res.chosen.shape == shape
-        assert int(res.state.n_assigned.sum()) == int(steps.valid.sum())
+        keys = random.split(random.key(0, cuda_device),
+                            int(np.prod(lead))).reshape(lead + (2,))
+        for rng_impl in ("lcg", "jax"):
+            pol = PolicyConfig(name=policy, threshold=2.0, rng=rng_impl)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = engine.run_window(state, steps, keys, policy=pol,
+                                        log_cfg=log_cfg, group_steps=False,
+                                        observe=True, rng0=seeds)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            assert res.chosen.shape == shape
+            assert int(res.state.n_assigned.sum()) == int(
+                steps.valid.sum())
 
 
 @pytest.mark.parametrize("policy", ["ect", "nltr", "two_choice"])
@@ -437,12 +442,13 @@ def test_sched_stream_on_card_matches_batch_rows(policy, cuda_device):
     works = engine.Workload(obj, lens, valid != 0)
     run = dict(policy=pol, log_cfg=log_cfg, window_size=win,
                window_dt=KW["window_dt"], observe=True)
-    rows, _, _ = engine.run_stream_batch(state, works, seeds, **run)
+    keys = random.split(random.key(31, cuda_device), t)
+    rows, _, _ = engine.run_stream_batch(state, works, keys, **run)
     for i in range(t):
         before = tkernel.LAUNCHES["sched_stream"]
         one = engine.run_stream(
             statlog.SchedState(*(x[i] for x in state)),
-            engine.Workload(*(x[i] for x in works)), seeds[i],
+            engine.Workload(*(x[i] for x in works)), keys[i],
             backend="kernel", **run)
         torch.cuda.synchronize()
         assert tkernel.LAUNCHES["sched_stream"] == before + 1
@@ -621,3 +627,96 @@ def test_flash_wgmma_refuses_misaligned_operands(cuda_device):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte boundary"):
         flash_attention(shifted, k, v)
+
+
+# -- threefry -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 10 ** 6])
+@pytest.mark.parametrize("lead", [(1,), (5,), (3, 4)],
+                         ids=lambda x: "x".join(map(str, x)))
+def test_threefry_kernel_matches_plain_on_card(n, lead, cuda_device):
+    """The hash kernel against its plain version on the same CUDA keys,
+    bit for bit: both output forms, a counter offset (fold_in's), and
+    one launch per call."""
+    from repro_torch.kernels.threefry import kernel as fkern
+    from repro_torch.kernels.threefry import ops as fops3
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, lead + (2,),
+                                         dtype=np.int64)).to(cuda_device)
+    for count_lo, xor in ((0, False), (0, True), (0x7e3, False),
+                          (2 ** 32 - 3, True)):
+        before = fkern.LAUNCHES["threefry"]
+        got = fops3.threefry_counters(keys, n, count_lo, xor)
+        torch.cuda.synchronize()
+        assert fkern.LAUNCHES["threefry"] == before + 1
+        want = fops3.threefry_counters_plain(keys, n, count_lo, xor)
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_random_on_card_matches_cpu(cuda_device):
+    """`repro_torch.random` on the card gives the CPU's draws (which the
+    CPU tests hold against jax.random): keys, bits, randint, uniform,
+    permutation and choice bit for bit, normal too (its float64 steps
+    round the same on both)."""
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        k = random.split(random.key(2024, dev), 6)
+        out[dev.type] = [
+            k, random.fold_in(k, 0x7e3), random.bits(k, (3, 50)),
+            random.randint(k, (500,), 0, 800), random.randint(k, (), 0, 3),
+            random.uniform(k, (500,), 10.0, 1024.0),
+            random.normal(k, (10_000,), scale=5.0),
+            random.permutation(k, 100), random.choice(k, 100, (10,))]
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), i
+
+
+@pytest.mark.filterwarnings("ignore:per_client window clamp")
+@pytest.mark.parametrize("client_model", ["shared_log", "per_client"])
+def test_prep_on_card_has_no_host_sync_and_matches_cpu(client_model,
+                                                       cuda_device):
+    """The §4 prep on the card under torch's sync debug mode (a read back
+    to the host raises), with stragglers and every scenario's draws, and
+    equal to the same prep on the CPU: bit for bit but the initial loads
+    (the normal's float64 log1p may round differently), within 1 ulp."""
+    for scenario in simulate.SCENARIOS:
+        cfg = simulate.SimConfig(client_model=client_model,
+                                 straggler_frac=0.1,
+                                 scenario=simulate.ScenarioConfig(scenario))
+        log = simulate.default_log_cfg(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            prep = simulate._prep_trials(
+                simulate.trial_keys(0, cfg, cuda_device), cfg, log)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        cpu = simulate._prep_trials(simulate.trial_keys(0, cfg, "cpu"), cfg,
+                                    log)
+        init, cinit = prep[0].cpu().numpy(), cpu[0].numpy()
+        ulp = np.abs(init.view(np.int32).astype(np.int64)
+                     - cinit.view(np.int32).astype(np.int64))
+        assert ulp.max() <= 1, scenario
+        # the log's loads row holds the initial loads
+        assert torch.equal(prep[3].log[:, 1:].cpu(), cpu[3].log[:, 1:])
+        rest = lambda p: [p[1], *p[2], *p[3][1:], *(p[4] or ()),  # noqa
+                          p[5]]
+        for a, b in zip(rest(prep), rest(cpu)):
+            assert torch.equal(a.cpu(), b), scenario
+
+
+@pytest.mark.parametrize("policy", ["trh", "nltr", "two_choice"])
+def test_eager_threefry_on_card_matches_cpu(policy, cuda_device):
+    """The eager engine under ``rng="jax"`` on the card against the CPU,
+    at init_load_std=0 (no normal): every `TrialResult` field."""
+    cfg = simulate.SimConfig(n_servers=37, n_requests=250, n_trials=4,
+                             window_size=60, init_load_std=0.0,
+                             backend="jax",
+                             scenario=simulate.ScenarioConfig("transient"))
+    log = simulate.default_log_cfg(cfg)
+    pol = PolicyConfig(name=policy, threshold=5.0)
+    card = simulate.run_trials(7, cfg, pol, log)
+    cpu = simulate.run_trials(7, cfg, pol, log, device="cpu")
+    for f, a, b in zip(card._fields, card, cpu):
+        assert torch.equal(a.cpu(), b), f"{policy}/{f}"

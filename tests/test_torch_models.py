@@ -360,4 +360,4 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
             valid=np.ones((t, r)), log=np.zeros((t, 4, m)),
             n_assigned=np.zeros((t, m)), rates=np.ones((t, m)),
             vclock=np.zeros(t), free_at=np.zeros((t, m)),
-            seeds=np.zeros(t, np.uint32))
+            keys=np.zeros((t, 2), np.uint32))

@@ -2,11 +2,11 @@
 
 The reference's per_client ``_prep_trials`` runs at a small `SimConfig`;
 its outputs are carried across with `repro_torch.interop`, with the
-(T, C) LCG seeds derived as the reference derives them (each trial's
-scheduling key split over the clients, then ``jax.random.bits``).  The
-port's ``_sched_trials`` + ``_post_trials`` (CPU, plain kernel versions)
-are held field by field against the reference's own stages on that prep:
-its kernel backend (the 2-D Pallas grid, interpret mode) for ect and
+trials' scheduler keys, which the port splits over the clients and turns
+into LCG seeds as the reference does (``split(k_sched, C)``, then
+``random.bits``).  The port's ``_sched_trials`` + ``_post_trials`` (CPU,
+plain kernel versions) are held field by field against the reference's
+own stages on that prep: its kernel backend (the 2-D Pallas grid, interpret mode) for ect and
 mlml, and its jax backend (pinned bit-exact to the kernel backend by the
 reference's own tests; randomised policies replay the kernel's LCG) for
 the other policies.
@@ -28,7 +28,7 @@ import torch
 
 from repro.core import simulate as jsim
 from repro.core.policies import PolicyConfig as JPolicyConfig
-from repro_torch import interop
+from repro_torch import interop, random
 from repro_torch.core import simulate as tsim
 from repro_torch.core import statlog as tstatlog
 from repro_torch.core.policies import PolicyConfig
@@ -76,18 +76,14 @@ def _reference_prep(items):
 def _port_from_reference(fields):
     init, mask, works, states, traces, k_sched = _reference_prep(
         tuple(sorted(fields.items())))
-    c = fields["n_clients"]
-    client_keys = jax.vmap(lambda k: jax.random.split(k, c))(k_sched)
-    seeds = jax.vmap(jax.vmap(
-        lambda k: jax.random.bits(k, dtype=jnp.uint32)))(client_keys)
-    assert seeds.shape == (fields["n_trials"], c)
     return interop.from_prep(
         init_loads=np.asarray(init), straggler_mask=np.asarray(mask),
         object_ids=np.asarray(works.object_ids),
         lengths=np.asarray(works.lengths), valid=np.asarray(works.valid),
         log=np.asarray(states.log), n_assigned=np.asarray(states.n_assigned),
         rates=np.asarray(states.rates), vclock=np.asarray(states.vclock),
-        free_at=np.asarray(states.free_at), seeds=np.asarray(seeds),
+        free_at=np.asarray(states.free_at),
+        keys=np.asarray(jax.random.key_data(k_sched)),
         trace_times=np.asarray(traces.times),
         trace_rates=np.asarray(traces.rates), device="cpu")
 
@@ -116,7 +112,7 @@ def test_per_client_slice_matches_reference(case):
     prep = _port_from_reference(fields)
     pol = PolicyConfig(name=policy, threshold=thr)
     sched = tsim._sched_trials(cfg_t, pol, log_t, prep.works, prep.states,
-                               prep.seeds, prep.traces)
+                               prep.keys, prep.traces)
     got = tsim._post_trials(cfg_t, prep.init_loads, prep.straggler_mask,
                             prep.works, prep.traces, *sched)
     assert got._fields == ref._fields
@@ -156,13 +152,23 @@ def test_per_client_window_clamp_warns_and_records():
 
 
 def test_per_client_port_prep_shapes():
-    """The port's own per_client prep draws one LCG state per client."""
+    """The port's own per_client prep draws one scheduler key per trial,
+    split over the clients as the reference splits it, each client's LCG
+    seed the ``bits`` of its key."""
     cfg = tsim.SimConfig(**CONTENTION, client_model="per_client")
-    gen = torch.Generator().manual_seed(3)
-    *_, seeds = tsim._prep_trials(gen, cfg, tsim.default_log_cfg(cfg),
-                                  torch.device("cpu"))
+    *_, k_sched = tsim._prep_trials(tsim.trial_keys(3, cfg, "cpu"), cfg,
+                                    tsim.default_log_cfg(cfg))
+    assert k_sched.shape == (2, 2) and k_sched.dtype == torch.int64
+    want = jax.vmap(lambda k: jax.random.split(k, 3)[2])(
+        jax.random.split(jax.random.key(3), 2))
+    np.testing.assert_array_equal(
+        k_sched.numpy(), np.asarray(jax.random.key_data(want)))
+    seeds = random.bits(random.split(k_sched, 5))
     assert seeds.shape == (2, 5)
     assert int(seeds.min()) >= 0 and int(seeds.max()) < 2 ** 32
+    np.testing.assert_array_equal(seeds.numpy(), np.asarray(jax.vmap(
+        lambda k: jax.vmap(lambda kk: jax.random.bits(kk, dtype=jnp.uint32))(
+            jax.random.split(k, 5)))(want)))
 
 
 def test_init_state_defaults_to_cuda_and_never_falls_back(monkeypatch):

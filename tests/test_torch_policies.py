@@ -2,11 +2,13 @@
 `select_target_rng` and `apply_threshold` of repro_torch against
 repro's, for the six engine policies, on a (T,) batch of states against
 the reference's unbatched functions under ``jax.vmap``; and the ``rng``
-knob: its validation, and the eager engine's refusal of threefry keys.
+knob: its validation, and the randomized policies under ``rng="jax"``
+(the reference's default), drawn from the same threefry keys.
 
-The randomized policies run under ``rng="lcg"`` on both sides: the draws
-come from the same uint32 LCG states, so targets and the advanced states
-agree bit for bit."""
+The LCG parity runs under ``rng="lcg"`` on both sides: the draws come
+from the same uint32 LCG states, so targets and the advanced states agree
+bit for bit; under ``rng="jax"`` the draws come from the same keys, so
+the targets and the window's decisions agree bit for bit."""
 
 import dataclasses
 
@@ -16,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import engine as jengine
 from repro.core import policies as jpol
 from repro.core import statlog as jstatlog
+from repro_torch import random
 from repro_torch.core import engine as tengine
 from repro_torch.core import policies as tpol
 from repro_torch.core import simulate as tsim
@@ -153,34 +157,88 @@ def test_rng_is_validated():
 
 @pytest.mark.parametrize("name", ["trh", "nltr", "two_choice"])
 def test_eager_engine_refuses_threefry_keys(name):
-    """A randomized policy under rng='jax' needs threefry (ROADMAP A7):
-    the eager entry points raise before any work, on either device; the
-    kernel backend ignores rng."""
+    """Once a refusal (threefry was not ported), now the parity of a
+    randomized policy under ``rng="jax"``: `select_target` with a key and
+    `draw_candidates` against the reference's ``select_target`` (vmapped
+    over the trials, every request position), and `run_window` against
+    the reference's, on the same keys.  No entry point raises, on either
+    backend."""
+    m = 37
+    st, obj, lens, valid, _ = _inputs(m, seed=3 + len(name))
+    cases = [(2, 2), (1, 2), (3, 2)] if name == "nltr" else \
+        [(2, 2), (2, 3)] if name == "two_choice" else [(2, 2)]
+    keys = jax.random.split(jax.random.key(7), T)
+    tkeys = torch.from_numpy(np.asarray(jax.random.key_data(keys)).astype(
+        np.int64))
+    for nltr_n, pc in cases:
+        kw = dict(name=name, threshold=4.0, nltr_n=nltr_n, probe_choices=pc)
+        jp, tp = jpol.PolicyConfig(**kw), tpol.PolicyConfig(**kw)
+        js, ts = _j(st), _t(st)
+        jplan = jax.vmap(lambda s, o, ln, v: jpol.plan_window(
+            jp, s, o, ln, v))(js, jnp.asarray(obj), jnp.asarray(lens),
+                              jnp.asarray(valid))
+        tplan = tpol.plan_window(tp, ts, torch.from_numpy(obj),
+                                 torch.from_numpy(lens),
+                                 torch.from_numpy(valid))
+        jreq = jax.vmap(lambda k: jax.random.split(k, R))(keys)
+        treq = random.split(tkeys, R)
+        np.testing.assert_array_equal(
+            treq.numpy(), np.asarray(jax.random.key_data(jreq)))
+        drawn = tpol.draw_candidates(tp, treq, m)
+        for pos in (0, 1, 17, R - 1):
+            want = jax.vmap(lambda pl, s, oo, ll, k: jpol.select_target(
+                jp, pl, s, jnp.int32(pos), oo, ll, k))(
+                jplan, js, jnp.asarray(obj[:, pos]), jnp.asarray(lens[:, pos]),
+                jreq[:, pos])
+            got = tpol.select_target(tp, tplan, ts, pos,
+                                     torch.from_numpy(obj[:, pos]),
+                                     torch.from_numpy(lens[:, pos]),
+                                     treq[:, pos])
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=f"{kw} at {pos}")
+            pre = tpol.select_drawn(tp, tplan, ts, pos,
+                                    torch.from_numpy(obj[:, pos]),
+                                    drawn[:, pos].unbind(-1))
+            assert torch.equal(pre, got)
+        # run_window on the same keys, grouped, observing
+        jlog = jstatlog.LogConfig(n_servers=m, lam=50.0)
+        tlog = tstatlog.LogConfig(n_servers=m, lam=50.0)
+        ref = jax.jit(jax.vmap(lambda s, w, k: jengine.run_window(
+            s, w, k, policy=jp, log_cfg=jlog, observe=True)))(
+            js, jengine.Workload(jnp.asarray(obj), jnp.asarray(lens),
+                                 jnp.asarray(valid)), keys)
+        res = tengine.run_window(ts, tengine.Workload(
+            torch.from_numpy(obj), torch.from_numpy(lens),
+            torch.from_numpy(valid)), tkeys, policy=tp, log_cfg=tlog,
+            observe=True)
+        for f in ("chosen", "redirected", "latencies", "probe_msgs"):
+            np.testing.assert_array_equal(getattr(res, f).numpy(),
+                                          np.asarray(getattr(ref, f)),
+                                          err_msg=f"{kw} run_window {f}")
+        np.testing.assert_array_equal(res.state.loads.numpy(),
+                                      np.asarray(ref.state.loads))
+    # no entry point refuses rng="jax", on either backend
     pol = tpol.PolicyConfig(name=name)
     cfg = tsim.SimConfig(n_servers=17, n_requests=40, n_trials=2,
                          window_size=20, backend="jax")
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            tsim.run_trials(0, cfg, pol, tsim.default_log_cfg(cfg),
-                            device=device)
-    st = tstatlog.init_state(tstatlog.LogConfig(n_servers=17), batch=2,
-                             device="cpu")
+    for backend in ("jax", "kernel"):
+        res = tsim.run_trials(0, dataclasses.replace(cfg, backend=backend),
+                              pol, tsim.default_log_cfg(cfg), device="cpu")
+        assert res.chosen.shape == (2, 40)
+    st2 = tstatlog.init_state(tstatlog.LogConfig(n_servers=17), batch=2,
+                              device="cpu")
     work = tengine.Workload(torch.zeros((2, 20), dtype=torch.int32),
                             torch.ones((2, 20)),
                             torch.ones((2, 20), dtype=torch.bool))
     kw = dict(policy=pol, log_cfg=tstatlog.LogConfig(n_servers=17),
               window_size=10)
-    seeds = torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tengine.run_stream(st, work, seeds, **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tengine.run_stream_batch(st, work, seeds, backend="jax", **kw)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tengine.run_window(st, work, policy=pol,
-                           log_cfg=tstatlog.LogConfig(n_servers=17))
-    # the kernel path ignores rng
-    res, _, _ = tengine.run_stream_batch(st, work, seeds, **kw)
-    assert res.chosen.shape == (2, 20)
+    keys2 = random.split(random.key(0, device="cpu"), 2)
+    for backend in ("jax", "kernel"):
+        res, _, _ = tengine.run_stream_batch(st2, work, keys2,
+                                             backend=backend, **kw)
+        assert res.chosen.shape == (2, 20)
+        assert tengine.run_stream(st2, work, keys2, backend=backend,
+                                  **kw).chosen.shape == (2, 20)
 
 
 def test_deterministic_policies_ignore_rng(monkeypatch):

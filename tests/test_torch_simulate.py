@@ -60,14 +60,14 @@ def _reference_prep(fields, scenario):
 def _port_from_reference(fields, scenario):
     init, mask, works, states, traces, k_sched = _reference_prep(
         tuple(sorted(fields.items())), scenario)
-    seeds = jax.vmap(lambda k: jax.random.bits(k, dtype=jnp.uint32))(k_sched)
     return interop.from_prep(
         init_loads=np.asarray(init), straggler_mask=np.asarray(mask),
         object_ids=np.asarray(works.object_ids),
         lengths=np.asarray(works.lengths), valid=np.asarray(works.valid),
         log=np.asarray(states.log), n_assigned=np.asarray(states.n_assigned),
         rates=np.asarray(states.rates), vclock=np.asarray(states.vclock),
-        free_at=np.asarray(states.free_at), seeds=np.asarray(seeds),
+        free_at=np.asarray(states.free_at),
+        keys=np.asarray(jax.random.key_data(k_sched)),
         trace_times=np.asarray(traces.times),
         trace_rates=np.asarray(traces.rates), device="cpu")
 
@@ -95,7 +95,7 @@ def test_slice_matches_reference(case):
     prep = _port_from_reference(fields, scenario)
     pol = PolicyConfig(name=policy, threshold=thr)
     sched = tsim._sched_trials(cfg_t, pol, log_t, prep.works, prep.states,
-                               prep.seeds, prep.traces)
+                               prep.keys, prep.traces)
     got = tsim._post_trials(cfg_t, prep.init_loads, prep.straggler_mask,
                             prep.works, prep.traces, *sched)
     assert got._fields == ref._fields
@@ -116,10 +116,8 @@ def test_port_prep_distributions():
     cfg = tsim.SimConfig(**SMALL, straggler_frac=0.1,
                          scenario=tsim.ScenarioConfig("transient"))
     log = tsim.default_log_cfg(cfg)
-    dev = torch.device("cpu")
-    gen = torch.Generator().manual_seed(11)
-    init, mask, works, states, traces, seeds = tsim._prep_trials(
-        gen, cfg, log, dev)
+    init, mask, works, states, traces, k_sched = tsim._prep_trials(
+        tsim.trial_keys(11, cfg, "cpu"), cfg, log)
     t, m, r = cfg.n_trials, cfg.n_servers, cfg.n_requests
     assert init.shape == (t, m) and init.dtype == torch.float32
     assert mask.shape == (t, m) and mask.dtype == torch.bool
@@ -127,8 +125,8 @@ def test_port_prep_distributions():
     assert works.object_ids.dtype == torch.int32
     assert works.lengths.dtype == torch.float32 and bool(works.valid.all())
     assert states.log.shape == (t, 4, m) and states.n_assigned.shape == (t, m)
-    assert seeds.shape == (t,) and int(seeds.min()) >= 0
-    assert int(seeds.max()) < 2 ** 32
+    assert k_sched.shape == (t, 2) and int(k_sched.min()) >= 0
+    assert int(k_sched.max()) < 2 ** 32
     assert int(works.object_ids.min()) >= 0
     assert int(works.object_ids.max()) < 8 * m
     ln = works.lengths
@@ -147,27 +145,30 @@ def test_port_prep_distributions():
             == n_strag).all()
     sums = states.log[:, 1].double().sum(dim=-1)
     np.testing.assert_allclose(sums.numpy(), 1.0, atol=1e-6)
-    again = tsim._prep_trials(torch.Generator().manual_seed(11), cfg, log,
-                              dev)
+    again = tsim._prep_trials(tsim.trial_keys(11, cfg, "cpu"), cfg, log)
     for a, b in zip(jax.tree_util.tree_leaves(
-            (init, mask, works, states, traces, seeds)),
+            (init, mask, works, states, traces, k_sched)),
             jax.tree_util.tree_leaves(again)):
         assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("scenario", tsim.SCENARIOS)
 def test_port_scenario_traces(scenario):
-    """Every scenario's trace against the reference's `make_trace`: the
-    event times bit for bit, the rate rows as base/slow rows of the same
-    shape with as many slow servers (a contiguous rack for
-    correlated_rack), and `trace_straggler_mask` on the port's trace."""
+    """Every scenario's trace against the reference's `make_trace` on the
+    same keys: the event times and rate rows bit for bit (base/slow rows
+    with as many slow servers, a contiguous rack for correlated_rack),
+    and `trace_straggler_mask` on the port's trace."""
     fields = dict(n_servers=37, n_requests=250, n_trials=4, window_size=60)
     cfg_t = tsim.SimConfig(**fields, scenario=tsim.ScenarioConfig(scenario))
     cfg_j = jsim.SimConfig(**fields, scenario=jsim.ScenarioConfig(scenario))
     assert tsim.resolve_window_dt(cfg_t, cfg_t.scenario) == \
         jsim.resolve_window_dt(cfg_j, cfg_j.scenario)
-    got = tsim.make_trace(torch.Generator().manual_seed(3), cfg_t,
-                          cfg_t.scenario, cfg_t.n_trials, torch.device("cpu"))
+    keys = jax.random.split(KEY, 4)
+    got = tsim.make_trace(torch.from_numpy(np.asarray(
+        jax.random.key_data(keys)).astype(np.int64)), cfg_t, cfg_t.scenario)
+    full = jax.vmap(lambda k: jsim.make_trace(k, cfg_j, cfg_j.scenario))(keys)
+    np.testing.assert_array_equal(got.times.numpy(), np.asarray(full.times))
+    np.testing.assert_array_equal(got.rates.numpy(), np.asarray(full.rates))
     want = jsim.make_trace(KEY, cfg_j, cfg_j.scenario)
     times, rates = got.times.numpy(), got.rates.numpy()
     assert times.shape == (4,) + want.times.shape
@@ -200,8 +201,7 @@ def test_port_run_trials_on_cpu(workload):
     lo, hi = {"small": (0.25, 4.0), "medium": (4.0, 10.0),
               "large": (10.0, 1024.0)}[workload]
     log = tsim.default_log_cfg(cfg)
-    gen = torch.Generator().manual_seed(5)
-    works = tsim._prep_trials(gen, cfg, log, torch.device("cpu"))[2]
+    works = tsim._prep_trials(tsim.trial_keys(5, cfg, "cpu"), cfg, log)[2]
     assert bool(((works.lengths >= lo) & (works.lengths <= hi)).all())
     res = tsim.run_trials(5, cfg, PolicyConfig(name="mlml", threshold=5.0),
                           log, device="cpu")
@@ -237,15 +237,16 @@ def test_run_trials_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("fields,match", [
-    (dict(prep="sequential"), "Queue A10"),
+    (dict(mesh_shape=(1,)), "Queue A10"),
     (dict(mesh_shape=(2,)), "Queue A10"),
     (dict(mesh_shape=(2, 2)), "Queue A10"),
     (dict(tiles="tuned", trial_tile=4, mesh_shape=(4,)), "Queue A10"),
 ])
 def test_unported_knobs_raise_naming_roadmap(fields, match):
-    """The knobs still unported raise naming their ROADMAP item; the tile
-    knobs (trial_tile, tiles) are ported and do not (tests/test_torch_
-    tune.py), so a tuned run raises for its mesh alone."""
+    """The knob still unported (the sharded sweep's mesh) raises naming
+    its ROADMAP item; the tile knobs (trial_tile, tiles) are ported and do
+    not (tests/test_torch_tune.py), so a tuned run raises for its mesh
+    alone.  ``prep="sequential"`` is ported (tests/test_torch_trials.py)."""
     with pytest.raises(NotImplementedError, match=match):
         tsim.SimConfig(**fields)
     tile_fields = {k: v for k, v in fields.items()

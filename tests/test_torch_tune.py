@@ -319,11 +319,10 @@ def test_stage_inside_collect_accumulates(monkeypatch):
     assert all(v >= 0.0 for v in stages.values())
     assert set(inner) == {"x"}
 
-    gen = torch.Generator().manual_seed(0)
-    _, _, works, states, traces, seeds = simulate._prep_trials(
-        gen, cfg, log_cfg, torch.device("cpu"))
+    _, _, works, states, traces, k_sched = simulate._prep_trials(
+        simulate.trial_keys(0, cfg, "cpu"), cfg, log_cfg)
     with profile.collect() as engine_stages:
-        engine.run_stream_batch(states, works, seeds, policy=pol,
+        engine.run_stream_batch(states, works, k_sched, policy=pol,
                                 log_cfg=log_cfg, window_size=cfg.window_size,
                                 traces=traces, window_dt=0.0)
     assert set(engine_stages) == {"engine_prep", "kernel", "book"}
