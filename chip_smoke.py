@@ -88,7 +88,25 @@ arguments it
    tokens, whose prefill must launch the wgmma flash kernel once per
    layer and the SIMT kernel never; its prefill logits are computed
    again with `attention_ref` in place of the kernel, in bf16 and in f32
-   compute, and held to a tolerance;
+   compute, and held to a tolerance; then the host path (the paper's
+   client-side I/O path, `repro_torch.io` / `checkpoint` / `data`): (a)
+   `benchmarks/paper_figs.py`'s completion-time experiment through the
+   port's `IOClient` for six policies, each phase time equal to the JAX
+   package's, with the host's µs per `HostScheduler.schedule` and per
+   `write_file`; (b) the ect client's live log snapshotted into a
+   `SchedState` on the card and one window scheduled from it by the
+   stream kernel (one launch, counted), against the same call on the
+   CPU; (c) the host half of `fig_temporal` at 100 servers, replaying
+   the transient trace `make_trace` draws on the card (and the CPU's,
+   which must replay alike); (d) gemma-2b's served parameters (10.0 GB)
+   saved from the card through `Checkpointer` on a `LocalFSStore` in a
+   temporary directory, with a straggler and a failed server, restored
+   onto the card `torch.equal` to the served ones, then the failed
+   server healed and `MaintainerThread` draining the redirect tables
+   (free disk and host RAM printed first; too little of either fails
+   the phase, naming what it needs); (e) `ObjectStoreTokens` at
+   gemma-2b's vocabulary and the serve shape onto the card, each batch
+   equal to `SyntheticTokens`'; `--host-path` runs this phase alone;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -133,6 +151,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import checkpoint as tckpt  # noqa: E402
+from repro_torch import data as tdata  # noqa: E402
+from repro_torch import io as tio  # noqa: E402
 from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import analysis, engine, policy_core  # noqa: E402
@@ -1527,6 +1548,362 @@ def time_per_client(cfg, log, pols, dev, card):
                  bound_by=m_by))
 
 
+# -- the host path: the paper's client-side I/O path --------------------------
+
+
+# benchmarks/paper_figs.py:173-194 (completion_time): 24 servers at
+# 200 MB/s (rate seed 3), server 1 a x8 straggler with 800 MB of foreign
+# queue, server 5 with 400 MB queued, 120 files x 16 MB, threshold 4.0
+COMPLETION_SERVERS, COMPLETION_FILES, COMPLETION_FILE_MB = 24, 120, 16.0
+HOST_POLICIES = ("rr", "mlml", "trh", "nltr", "ect", "two_choice")
+# the JAX package's phase seconds on those settings (repro.io.IOClient on
+# repro.io.SimulatedCluster); tests/test_torch_io.py holds the port to
+# them placement for placement on the CPU
+COMPLETION_REF_S = {"rr": 35.039999999999935, "mlml": 32.31999999999999,
+                    "trh": 2.02, "nltr": 0.48000000000000015,
+                    "ect": 32.16, "two_choice": 32.16}
+# the host half of paper_figs.fig_temporal at the §4 width: 100 servers,
+# the transient trace of trial 0 of seed 0; 500 files x 16 MB (the §4
+# stream's 2,000 requests, as 4 MB objects), one every horizon / 500 s
+TEMPORAL_POLICIES = (("rr", 0.0), ("trh", 4.0), ("ect", 0.05))
+TEMPORAL_FILES, TEMPORAL_FILE_MB = 500, 16.0
+# (d): gemma-2b through the Checkpointer's defaults (16 servers, 8 MB
+# shards, 4 MB stripes, trh at 4.0), server 3 a straggler, server 7
+# failed before the save
+CKPT_STRAGGLER, CKPT_DELAY_S_PER_MB, CKPT_FAILED = 3, 0.005, 7
+CKPT_MAINTAIN_S = 20.0
+# (e): the serve shape's token batches through 8 servers, one straggler
+DATA_SERVERS, DATA_STRAGGLER, DATA_DELAY_S_PER_MB, DATA_STEPS = 8, 2, 0.01, 8
+
+
+def completion_cluster(io, name):
+    """paper_figs.completion_time's cluster and client for one policy."""
+    sim = io.SimulatedCluster(COMPLETION_SERVERS, base_rate_mb_s=200.0,
+                              seed=3)
+    sim.make_straggler(1, 8.0)
+    sim.add_external_load(1, 800.0)
+    sim.add_external_load(5, 400.0)
+    cli = io.IOClient(sim, io.IOClientConfig(
+        policy=PolicyConfig(name=name, threshold=4.0)))
+    for s in range(COMPLETION_SERVERS):
+        cli.log.loads[s] = sim.queued_mb(s)
+    return sim, cli
+
+
+def run_completion_time(card):
+    """(a): the paper's completion-time experiment through the port's
+    `IOClient`, six policies; the host's µs per `HostScheduler.schedule`
+    and per `write_file`.  Returns the ect client."""
+    clients = {}
+    for name in HOST_POLICIES:
+        sim, cli = completion_cluster(tio, name)
+        spent = [0.0, 0]
+        schedule = cli.sched.schedule
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = schedule(*a, **k)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+
+        cli.sched.schedule = timed
+        t0 = time.perf_counter()
+        for f in range(COMPLETION_FILES):
+            cli.write_file(f, size_mb=COMPLETION_FILE_MB)
+        write_s = time.perf_counter() - t0
+        phase = cli.flush()
+        if phase != COMPLETION_REF_S[name]:
+            fail(f"completion time {name}: phase {phase!r} s, the JAX "
+                 f"package's is {COMPLETION_REF_S[name]!r} s")
+        print(f"  {name:>10s} phase {phase:.4f} s  straggler_hits "
+              f"{sim.servers[1].n_requests:3d}  probes {cli.probe_messages:4d}"
+              f"  host {1e6 * spent[0] / spent[1]:.1f} µs/schedule, "
+              f"{1e6 * write_s / COMPLETION_FILES:.1f} µs/write_file "
+              f"({spent[1]} schedules)")
+        clients[name] = cli
+    print(f"host path (a) completion time on {card}'s host: phases equal "
+          "the JAX package's for all six policies")
+    return clients["ect"]
+
+
+def run_log_snapshot(cli, card):
+    """(b): the ect client's live log snapshotted into a `SchedState` on
+    the card; one window of the next files' requests scheduled from it by
+    `engine.run_stream(backend="kernel")` (one stream kernel launch),
+    against the same call on the CPU (the plain version)."""
+    sim = cli.store
+    m = cli.n_servers
+    reqs = [r for f in range(COMPLETION_FILES, COMPLETION_FILES + 40)
+            for r in tio.stripe_file(cli.striping, f,
+                                     int(COMPLETION_FILE_MB * tio.MB))]
+    # int32 ids with the same default home (object_id mod M)
+    span = m * ((2 ** 31 - 1) // m)
+    ids = [r.object_id % span for r in reqs]
+    lens = [r.length / tio.MB for r in reqs]
+    rates = [s.rate_mb_s for s in sim.servers]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = cli.log.snapshot(device=dev)
+        work = engine.Workload(
+            torch.tensor(ids, dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.float32, device=dev),
+            torch.ones(len(ids), dtype=torch.bool, device=dev))
+        trace = engine.ClusterTrace(
+            times=torch.zeros(1, device=dev),
+            rates=torch.tensor([rates], dtype=torch.float32, device=dev))
+        zero_counts()
+        res = engine.run_stream(
+            state, work, random.key(0, dev),
+            policy=PolicyConfig(name="ect", threshold=0.05),
+            log_cfg=cli.log.cfg, window_size=len(ids), trace=trace,
+            window_dt=0.1, backend="kernel")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = but_threefry(all_counts())
+            if counts != dict({k: 0 for k in counts}, sched_stream=1):
+                fail(f"log snapshot window launched {counts}, expected one "
+                     "sched_stream launch")
+            launches = counts["sched_stream"]
+        out[dev] = res
+    got, want = out["cuda"], out["cpu"]
+    if got.state.log.device.type != "cuda":
+        fail("the snapshot's window did not run on the card")
+    exact = {f: torch.equal(getattr(got, f).cpu(), getattr(want, f))
+             for f in ("chosen", "probe_msgs", "redirected", "latencies",
+                       "window_loads")}
+    exact.update({f: torch.equal(getattr(got.state, f).cpu(),
+                                 getattr(want.state, f))
+                  for f in ("n_assigned", "rates", "vclock", "free_at")})
+    exact["loads"] = torch.equal(got.state.loads.cpu(), want.state.loads)
+    if not all(exact.values()):
+        fail(f"log snapshot window: card and CPU differ in "
+             f"{[f for f, ok in exact.items() if not ok]}")
+    d_probs = (got.state.probs.cpu() - want.state.probs).abs().max().item()
+    rel = ((got.state.log[2:].cpu() - want.state.log[2:]).abs()
+           / want.state.log[2:].abs().clamp_min(1.0)).max().item()
+    if d_probs > 1e-6 or rel > 1e-6:
+        fail(f"log snapshot window: probs differ by {d_probs:.3g}, "
+             f"ewma/est by {rel:.3g} relative")
+    table_bits = torch.equal(got.state.log.cpu(), want.state.log)
+    redirected = int(got.redirected.sum())
+    print(f"host path (b) on {card}: the ect client's log ({m} servers, "
+          f"{len(cli.log.request_log)} requests booked) -> SchedState on "
+          f"the card -> one window of {len(ids)} requests, 1 sched_stream "
+          f"launch; choices, latencies, loads, window loads, counts and "
+          f"clock bit-identical to the CPU's plain version (whole table "
+          f"{'bit-identical' if table_bits else 'not'}; probs {d_probs:.3g},"
+          f" ewma/est {rel:.3g} relative); {redirected} redirected")
+    return launches
+
+
+def run_temporal_host(card):
+    """(c): the host half of fig_temporal at the §4 width: the port's
+    `make_trace` draws trial 0's transient trace (seed 0) on the card,
+    and `SimulatedCluster(trace=...)` replays it for rr, trh and ect;
+    the same trace drawn on the CPU replays to the same results."""
+    cfg = simulate.SimConfig(scenario=simulate.ScenarioConfig("transient"))
+    traces = {}
+    for dev in ("cuda", "cpu"):
+        keys = simulate.trial_keys(0, cfg, dev)[:1]
+        tr = simulate.make_trace(keys, cfg, cfg.scenario)
+        traces[dev] = engine.ClusterTrace(times=tr.times[0],
+                                          rates=tr.rates[0])
+    if traces["cuda"].times.device.type != "cuda":
+        fail("make_trace did not draw on the card")
+    horizon = cfg.n_windows * simulate.resolve_window_dt(cfg, cfg.scenario)
+    dt = horizon / TEMPORAL_FILES
+    m = cfg.n_servers
+    results = {}
+    for dev, trace in traces.items():
+        for pol, thr in TEMPORAL_POLICIES:
+            sim = tio.SimulatedCluster(m, base_rate_mb_s=200.0, seed=3,
+                                       trace=trace)
+            cli = tio.IOClient(sim, tio.IOClientConfig(
+                policy=PolicyConfig(name=pol, threshold=thr)))
+            t0 = time.perf_counter()
+            for f in range(TEMPORAL_FILES):
+                cli.write_file(f, size_mb=TEMPORAL_FILE_MB)
+                sim.advance_time(dt)
+                for s in range(m):
+                    cli.log.loads[s] = sim.queued_mb(s)
+            cli.flush()
+            st = cli.stats()
+            results[dev, pol] = (st["p99_write_s"], sim.clock,
+                                 [r.server for r in cli.records],
+                                 time.perf_counter() - t0)
+    slow = (traces["cpu"].rates < 200.0).any(dim=0).nonzero().flatten()
+    print(f"host path (c) on {card}'s host: transient trace of trial 0 "
+          f"(seed 0) drawn on the card, events at "
+          f"{[round(t, 4) for t in traces['cpu'].times.tolist()]} s, "
+          f"{len(slow)} slow servers {slow.tolist()}; {TEMPORAL_FILES} "
+          f"files x {TEMPORAL_FILE_MB:g} MB, one every {dt:.5f} s")
+    for pol, _ in TEMPORAL_POLICIES:
+        p99, clock, chosen, wall = results["cuda", pol]
+        if results["cpu", pol][:3] != (p99, clock, chosen):
+            fail(f"temporal host path {pol}: the card's trace replays "
+                 "differently from the CPU's")
+        hits = sum(c in set(slow.tolist()) for c in chosen)
+        print(f"  {pol:>4s} p99 write {p99:.6f} s  done at {clock:.6f} s"
+              f"  {hits} of {len(chosen)} objects on slow servers  "
+              f"(wall {wall:.2f} s)")
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.endswith(".bin"))
+
+
+def host_ram_bytes():
+    """(available, total) host RAM from /proc/meminfo."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            info[k] = int(v.split()[0]) * 1024
+    return info["MemAvailable"], info["MemTotal"]
+
+
+def run_checkpoint(serve_args, card):
+    """(d): gemma-2b's served parameters saved from the card through
+    `Checkpointer` onto a `LocalFSStore` (a straggler, a failed server),
+    restored onto the card `torch.equal` to the served ones; then the
+    failed server healed and `MaintainerThread` draining the redirect
+    tables."""
+    _, params, _ = serve.setup(serve_args)
+    want = params.state_dict()
+    nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    n_params = sum(t.numel() for t in want.values())
+    root = tempfile.mkdtemp(prefix="ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        ram_avail, ram_total = host_ram_bytes()
+        print(f"host path (d): gemma-2b state_dict {len(want)} tensors, "
+              f"{n_params} parameters, {nbytes / 1e9:.3f} GB; free disk "
+              f"{free / 1e9:.1f} GB at {root}, host RAM {ram_avail / 1e9:.1f}"
+              f" GB available of {ram_total / 1e9:.1f} GB")
+        if free < 1.1 * nbytes or ram_avail < 3 * nbytes:
+            fail(f"checkpoint of gemma-2b needs {1.1 * nbytes / 1e9:.1f} GB "
+                 f"of disk and {3 * nbytes / 1e9:.1f} GB of host RAM; have "
+                 f"{free / 1e9:.1f} GB and {ram_avail / 1e9:.1f} GB")
+        ck = tckpt.Checkpointer(root)
+        ck.store.set_write_delay(CKPT_STRAGGLER, CKPT_DELAY_S_PER_MB)
+        ck.store.fail_server(CKPT_FAILED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, params)
+        save_s = time.perf_counter() - t0
+        st = ck.client.stats()
+        objdir = os.path.join(root, "objects")
+        per_server = [dir_bytes(os.path.join(objdir, f"server_{s:04d}"))
+                      for s in range(ck.store.n_servers)]
+        redirects = ck.store.redirect_count()
+        t0 = time.perf_counter()
+        back = ck.restore(target=params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if list(back) != list(want):
+            fail("restored gemma-2b state_dict has other keys")
+        for k, v in want.items():
+            got = back[k]
+            if got.device != v.device or not torch.equal(got, v):
+                fail(f"restored gemma-2b tensor {k} differs from the served "
+                     f"one (on {got.device})")
+        del back
+        mean_b = sum(per_server) / len(per_server)
+        print(f"  save {save_s:.2f} s ({nbytes / save_s / 1e9:.3f} GB/s), "
+              f"restore onto the card {restore_s:.2f} s "
+              f"({nbytes / restore_s / 1e9:.3f} GB/s), every tensor "
+              f"torch.equal to the served one")
+        print(f"  {int(st['writes'])} objects, redirect rate "
+              f"{st['redirect_rate']:.4f}, retries {int(st['retries'])}, "
+              f"failed writes {int(st['failed_writes'])}; straggler "
+              f"(server {CKPT_STRAGGLER}, {CKPT_DELAY_S_PER_MB} s/MB) holds "
+              f"{per_server[CKPT_STRAGGLER] / 1e6:.1f} MB against a mean of "
+              f"{mean_b / 1e6:.1f} MB; failed server {CKPT_FAILED} holds "
+              f"{per_server[CKPT_FAILED]} B; {redirects} redirect entries")
+        if st["failed_writes"] < 1 or per_server[CKPT_FAILED]:
+            fail("the failed server was never tried, or holds objects")
+        ck.store.heal_server(CKPT_FAILED)
+        maint = tio.MaintainerThread(ck.store, interval_s=0.0,
+                                     max_objects=64)
+        t0 = time.perf_counter()
+        maint.start()
+        deadline = t0 + CKPT_MAINTAIN_S
+        while ck.store.redirect_count() and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        maint.stop()
+        left = ck.store.redirect_count()
+        print(f"  maintainer: {maint.total_moved} objects moved home in "
+              f"{time.perf_counter() - t0:.2f} s, {left} redirect entries "
+              f"left (of {redirects})")
+        leaves = ck.manifest(1).leaves
+        for leaf in leaves[:3] + leaves[-3:]:
+            if not torch.equal(ck.read_leaf(leaf).to("cuda"),
+                               want[leaf.path]):
+                fail(f"after the maintainer, {leaf.path} reads back "
+                     "differently")
+        ck.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, want
+    torch.cuda.empty_cache()
+
+
+def run_token_batches(card):
+    """(e): `ObjectStoreTokens` at gemma-2b's vocabulary, the serve
+    shape (seq 512, global batch 4), 8 steps through a `LocalFSStore` of
+    8 servers with one straggler; every batch on the card and equal to
+    `SyntheticTokens`'."""
+    cfg = tdata.DataConfig(vocab_size=get_config("gemma-2b").vocab_size,
+                           seq_len=512, global_batch=4)
+    root = tempfile.mkdtemp(prefix="tokens_")
+    try:
+        store = tio.LocalFSStore(root, DATA_SERVERS)
+        store.set_write_delay(DATA_STRAGGLER, DATA_DELAY_S_PER_MB)
+        ost = tdata.ObjectStoreTokens(cfg, tio.IOClient(store),
+                                      rows_per_shard=cfg.global_batch)
+        t0 = time.perf_counter()
+        shards = ost.prepare(DATA_STEPS)
+        prep_s = time.perf_counter() - t0
+        synth = tdata.SyntheticTokens(cfg)
+        ms = []
+        for step in range(DATA_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ost.batch_at(step)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            want = synth.batch_at(step)
+            for k in ("tokens", "targets"):
+                if got[k].device.type != "cuda" or got[k].dtype != \
+                        torch.int32 or not torch.equal(got[k], want[k]):
+                    fail(f"token batch {step} {k} is not SyntheticTokens' "
+                         "on the card")
+        redirects = store.redirect_count()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"host path (e) on {card}: {DATA_STEPS} batches of "
+          f"{tuple(got['tokens'].shape)} int32 tokens (vocab "
+          f"{cfg.vocab_size}) from {shards} shards on {DATA_SERVERS} "
+          f"servers (straggler {DATA_STRAGGLER}, {redirects} redirects; "
+          f"prepare {prep_s:.3f} s), each on the card equal to "
+          f"SyntheticTokens': {sum(ms) / len(ms):.3f} ms per batch "
+          f"(first {ms[0]:.3f}, median {sorted(ms)[len(ms) // 2]:.3f})")
+
+
+def run_host_path(serve_args, card) -> int:
+    """Phases (a)-(e) of the host path, in order; returns (b)'s stream
+    kernel launches."""
+    t0 = time.perf_counter()
+    launches = run_log_snapshot(run_completion_time(card), card)
+    run_temporal_host(card)
+    run_checkpoint(serve_args, card)
+    run_token_batches(card)
+    print(f"host path phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- flash attention and the serving path --------------------------------------
 
 
@@ -1979,6 +2356,9 @@ def main() -> None:
     serve_args, serve_out, serve_counts = run_serve_path(card)
     check_serve_logits(serve_args, serve_out["tokens"])
     profile_serve(serve_args, serve_out["prefill_s"], card)
+
+    # -- the host path: the client-side I/O path, checkpoints, tokens ------
+    host_launches = run_host_path(serve_args, card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -1991,6 +2371,7 @@ def main() -> None:
              max_abs_err=err_1d, library_ms=None, **t_1d,
              ablate_launches=tune_counts["sched_stream_ablate"],
              sequential_launches=seq_launches,
+             host_path_launches=host_launches,
              eager_launches=eager_counts["shared_log"]["sched_stream"],
              levels_ms=split),
         dict(name="sched_stream_grid", route="cuda", source=src,
@@ -2021,8 +2402,22 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def main_host_path() -> None:
+    """`python3 chip_smoke.py --host-path`: the host path's phases alone."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this run needs a card")
+    card = card_line()
+    print(card)
+    run_host_path(serve.parse_args(SERVE_ARGS), card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--walls"] and len(sys.argv) == 3:
         compare_walls(Path(sys.argv[2]))
+    elif sys.argv[1:] == ["--host-path"]:
+        main_host_path()
     else:
         main()

@@ -16,17 +16,21 @@ rows are (..., M), a window's requests (..., R), per-stream scalars (...).
 * ``nltr``       — n-Level Two Random (paper Alg. 3).
 * ``two_choice`` — the SC'14 probing baseline (2 probes per request).
 * ``ect``        — argmin of expected completion time on estimated rates.
+
+`HostScheduler` runs the same rules one request at a time on a
+`statlog.HostStatLog`, for the real I/O client (`repro_torch.io`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import random
-from repro_torch.core import policy_core
+from repro_torch.core import policy_core, statlog
 from repro_torch.core.statlog import SchedState
 
 POLICIES = ("rr", "mlml", "trh", "nltr", "two_choice", "ect")
@@ -270,3 +274,132 @@ def apply_threshold(cfg: PolicyConfig, state: SchedState,
                                            length)
     return torch.where(benefit > policy_core.const(cfg.threshold, benefit),
                        target, default)
+
+
+# ---------------------------------------------------------------------------
+# The host scheduler: the real I/O client's hot path
+# ---------------------------------------------------------------------------
+
+
+class HostScheduler:
+    """`plan_window`, `select_target` and `apply_threshold` one request at
+    a time on a `statlog.HostStatLog` (float64, on the CPU).
+
+    A window is opened by `begin_window`, which sorts the servers once;
+    `schedule` then places one request and books it in the log.
+
+    The two-random draws come from numpy's seeded ``default_rng(seed)``
+    (PCG64), as in the reference: torch has no PCG64, and a
+    ``torch.Generator`` would place requests elsewhere.
+    """
+
+    def __init__(self, cfg: PolicyConfig, log: statlog.HostStatLog,
+                 seed: int = 0):
+        validate_policy(cfg, log.n_servers)
+        self.cfg = cfg
+        self.log = log
+        self.rng = np.random.default_rng(seed)
+        self.probe_messages = 0
+        self._sorted_servers: Optional[List[int]] = None
+        self._masked: set = set()
+
+    # -- failure handling (the client's retry path) --------------------------
+    def mask_server(self, server: int) -> None:
+        """Exclude a failed server from future targets (until unmasked)."""
+        self._masked.add(int(server))
+
+    def unmask_server(self, server: int) -> None:
+        self._masked.discard(int(server))
+
+    @property
+    def masked_servers(self) -> frozenset:
+        return frozenset(self._masked)
+
+    # -- window machinery ------------------------------------------------------
+    def begin_window(self, lengths: Optional[Sequence[float]] = None) -> None:
+        """Sort the servers by probability, highest first (a stable sort:
+        ties to the lowest index, the stream kernel's all-pairs rank).
+        nLTR sections the window's queued ``lengths`` here."""
+        self._sorted_servers = torch.argsort(
+            -self.log.probs, stable=True).tolist()
+        self._pos = 0
+        if self.cfg.name == "nltr" and lengths is not None and len(lengths):
+            self._req_bounds = statlog.host_recursive_average_bounds(
+                sorted((float(v) for v in lengths), reverse=True),
+                self.cfg.nltr_n)
+        else:
+            self._req_bounds = None
+
+    def _alive_lightest(self, loads: List[float]) -> int:
+        alive = [s for s in range(len(loads)) if s not in self._masked]
+        return min(alive, key=loads.__getitem__)
+
+    def _two_random(self, lo: int, size: int, loads: List[float]) -> int:
+        size = max(size, 1)
+        ss = self._sorted_servers
+        m = len(ss)
+        cands = []
+        for _ in range(8):  # rejection-sample around masked servers
+            i1 = lo + int(self.rng.integers(0, size))
+            i2 = lo + int(self.rng.integers(0, size))
+            cands = [c for c in (ss[i1 % m], ss[i2 % m])
+                     if c not in self._masked]
+            if cands:
+                break
+        if not cands:  # the whole section masked: the global lightest
+            return self._alive_lightest(loads)
+        return min(cands, key=loads.__getitem__)
+
+    def schedule(self, object_id: int, length_mb: float,
+                 offset: int = 0) -> int:
+        """Place one request; returns the chosen server and books it in
+        the log (Eqs. (1)-(3))."""
+        if self._sorted_servers is None:
+            self.begin_window()
+        cfg, log = self.cfg, self.log
+        m = log.n_servers
+        default = int(object_id) % m
+        pos = self._pos
+        self._pos += 1
+        log.record_request(object_id, offset, length_mb)
+        loads = log.loads.tolist()
+
+        if cfg.name == "rr":
+            target = default
+        elif cfg.name == "mlml":
+            target = self._sorted_servers[pos % m]
+        elif cfg.name == "trh":
+            target = self._two_random(0, max(m // 2, 1), loads)
+        elif cfg.name == "nltr":
+            k = cfg.k_sections
+            sec = 0 if self._req_bounds is None else sum(
+                b <= pos for b in self._req_bounds)
+            sec = min(sec, k - 1)
+            sec_size = max(m // k, 1)
+            target = self._two_random(sec * sec_size, sec_size, loads)
+        elif cfg.name == "two_choice":
+            cand = [default] + [int(self.rng.integers(0, m))
+                                for _ in range(cfg.probe_choices - 1)]
+            self.probe_messages += cfg.probe_choices
+            cand = [c for c in cand if c not in self._masked] or cand
+            target = min(cand, key=loads.__getitem__)
+        elif cfg.name == "ect":
+            ect = statlog.host_ect_scores(log.loads, log.est_rates,
+                                          length_mb)
+            if self._masked:
+                ect[list(self._masked)] = float("inf")
+            target = int(torch.argmin(ect))
+        else:  # pragma: no cover
+            raise AssertionError(cfg.name)
+
+        if target in self._masked:
+            target = self._alive_lightest(loads)
+        if cfg.name != "rr" and default not in self._masked:
+            benefit = statlog.host_redirect_benefit(
+                cfg.name, loads, log.est_rates.tolist(), default, target,
+                length_mb)
+            chosen = target if benefit > cfg.threshold else default
+        else:
+            chosen = target
+        log.apply_assignment(chosen, length_mb)
+        return chosen

@@ -720,3 +720,137 @@ def test_eager_threefry_on_card_matches_cpu(policy, cuda_device):
     cpu = simulate.run_trials(7, cfg, pol, log, device="cpu")
     for f, a, b in zip(card._fields, card, cpu):
         assert torch.equal(a.cpu(), b), f"{policy}/{f}"
+
+
+# ---------------------------------------------------------------------------
+# the host path: the client's log, checkpoints and token batches on the card
+# ---------------------------------------------------------------------------
+
+
+def _busy_host_log(m=24):
+    from repro_torch.core.statlog import HostStatLog, LogConfig
+    log = HostStatLog(LogConfig(n_servers=m, lam=32.0))
+    rng = np.random.default_rng(3)
+    log.set_rates(np.linspace(25.0, 200.0, m))
+    for _ in range(60):
+        s = int(rng.integers(0, m))
+        log.apply_assignment(s, float(rng.uniform(1, 16)))
+        log.observe_completion(s, float(rng.uniform(20, 200)))
+        if rng.random() < 0.2:
+            log.advance_time(0.05)
+    return log
+
+
+def test_host_log_snapshot_on_card_matches_cpu(cuda_device):
+    """`snapshot(device="cuda")` equals the CPU snapshot, and one window
+    scheduled from it by the stream kernel equals the plain version's
+    from the CPU snapshot (contract fields bit for bit)."""
+    from repro_torch.core import engine
+    log = _busy_host_log()
+    card, cpu = log.snapshot(device=cuda_device), log.snapshot(device="cpu")
+    for f, a, b in zip(card._fields, card, cpu):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b), f
+    ids = np.random.default_rng(5).integers(0, 10 ** 6, 80)
+    out = {}
+    for dev, state in (("cuda", card), ("cpu", cpu)):
+        work = engine.Workload(
+            torch.tensor(ids, dtype=torch.int32, device=dev),
+            torch.full((80,), 4.0, device=dev),
+            torch.ones(80, dtype=torch.bool, device=dev))
+        before = tkernel.LAUNCHES["sched_stream"]
+        out[dev] = engine.run_stream(
+            state, work, random.key(0, dev),
+            policy=PolicyConfig(name="ect", threshold=0.05),
+            log_cfg=log.cfg, window_size=80, backend="kernel")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert tkernel.LAUNCHES["sched_stream"] == before + 1
+    got, want = out["cuda"], out["cpu"]
+    for f in ("chosen", "probe_msgs", "redirected", "latencies",
+              "window_loads"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert torch.equal(got.state.loads.cpu(), want.state.loads)
+    torch.testing.assert_close(got.state.log.cpu(), want.state.log,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_checkpoint_of_card_tensors_restores_on_card(cuda_device,
+                                                     tmp_path):
+    """Card tensors (a bfloat16 leaf, an int32 scalar, a list) saved
+    asynchronously and mutated in place on the card right after `save`:
+    the restore onto the card equals the tree as it was at `save`."""
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.io import IOClientConfig
+    from repro_torch.io.striping import MB
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"layer": {"w": torch.randn(300, 200, device=cuda_device,
+                                       generator=g),
+                      "b": torch.randn(200, device=cuda_device,
+                                       generator=g).to(torch.bfloat16)},
+            "step": torch.tensor(17, dtype=torch.int32, device=cuda_device),
+            "nested": [torch.arange(5.0, device=cuda_device),
+                       torch.ones(2, 3, 4, device=cuda_device)]}
+    want = {"w": tree["layer"]["w"].clone(), "b": tree["layer"]["b"].clone()}
+    ck = Checkpointer(str(tmp_path), n_servers=5, cfg=CheckpointConfig(
+        shard_size_mb=0.25, async_save=True,
+        io=IOClientConfig(policy=PolicyConfig(name="trh", threshold=0.1),
+                          stripe_size=MB // 4)))
+    ck.save(1, tree)
+    tree["layer"]["w"].mul_(0)
+    tree["layer"]["b"].zero_()
+    ck.wait_until_finished()
+    back = ck.restore()
+    assert all(t.device.type == "cuda" for t in back.values())
+    assert back["layer/b"].dtype == torch.bfloat16
+    assert torch.equal(back["layer/w"], want["w"])
+    assert torch.equal(back["layer/b"].view(torch.int16),
+                       want["b"].view(torch.int16))
+    assert torch.equal(back["step"], tree["step"])
+    assert torch.equal(back["nested/1"], tree["nested"][1])
+    onto = ck.restore(target={**tree, "layer": {
+        "w": torch.zeros(300, 200), "b": tree["layer"]["b"]}})
+    assert onto["layer"]["w"].device.type == "cpu"
+    assert onto["layer"]["b"].device.type == "cuda"
+    ck.close()
+
+
+def test_batch_at_on_card_equals_cpu(cuda_device, tmp_path):
+    from repro_torch.data import DataConfig, ObjectStoreTokens
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.io import IOClient, LocalFSStore
+    cfg = DataConfig(vocab_size=256000, seq_len=512, global_batch=4)
+    ost = ObjectStoreTokens(cfg, IOClient(LocalFSStore(str(tmp_path), 8)),
+                            rows_per_shard=4)
+    ost.prepare(3)
+    synth = SyntheticTokens(cfg)
+    for step in range(3):
+        for batch in (ost.batch_at(step), synth.batch_at(step)):
+            want = synth.batch_at(step, device="cpu")
+            for k in ("tokens", "targets"):
+                assert batch[k].device.type == "cuda"
+                assert torch.equal(batch[k].cpu(), want[k]), (step, k)
+
+
+def test_sim_cluster_replays_card_trace_as_cpu(cuda_device):
+    """`SimulatedCluster(trace=...)` fed `make_trace`'s card-resident
+    trace equals the same replay of the CPU-drawn one."""
+    from repro_torch.core import engine
+    from repro_torch.io import IOClient, IOClientConfig, SimulatedCluster
+    cfg = simulate.SimConfig(n_servers=40, n_requests=400, window_size=40,
+                             scenario=simulate.ScenarioConfig("flapping"))
+    out = []
+    for dev in ("cuda", "cpu"):
+        keys = simulate.trial_keys(0, cfg, dev)[:1]
+        tr = simulate.make_trace(keys, cfg, cfg.scenario)
+        assert tr.times.device.type == dev
+        sim = SimulatedCluster(40, base_rate_mb_s=200.0, trace=engine.
+                               ClusterTrace(tr.times[0], tr.rates[0]))
+        cli = IOClient(sim, IOClientConfig(policy=PolicyConfig(
+            name="ect", threshold=0.05)))
+        for f in range(60):
+            cli.write_file(f, size_mb=16.0)
+            sim.advance_time(0.05)
+        out.append((cli.flush(), sim.clock,
+                    [r.server for r in cli.records], cli.log.table))
+    assert out[0][:3] == out[1][:3]
+    assert torch.equal(out[0][3], out[1][3])
