@@ -5,8 +5,10 @@
 
 From the root of a checkout, with one CUDA card visible.  With
 ``--walls DIR`` it only times the main paths' `run_trials` walls of this
-tree and of the checkout at DIR, alternately (`compare_walls`).  With no
-arguments it
+tree and of the checkout at DIR, alternately (`compare_walls`);
+``--host-path`` runs the host path's phase alone; ``--sweep-rank RANK
+WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
+script starts itself (`sweep_rank_main`).  With no arguments it
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the CUDA kernels with nvcc (one nvcc per source, started
@@ -18,13 +20,13 @@ arguments it
    stream kernel in its 1-D form for all eight policies at M in
    {37, 130, 300, 1000}, with a padded final window, T not a multiple of
    the warps per block and T = 140 above the SM count, the window and
-   M_pad at their 1024 caps, a table of -0.0/+0.0 loads with tied
+   M_pad at 1024, a table of -0.0/+0.0 loads with tied
    scores, one whose est row is not ewma's function and one where a
    padding lane wins ect's argmin; its 2-D (trials x clients) form and
    the cross-client merge for all eight policies at M in {37, 130},
    with C not a multiple of the client tile, whole phantom clients, a
    padded last window, N = 16/17 and 32/33 (each form's p99 edge), the
-   window and M_pad at their 1024 caps, and the merge as mean and as raw
+   window and M_pad at 1024, and the merge as mean and as raw
    sum; the merge alone on operands made directly (`torch_parity.
    MERGE_CASES`: C·N past its shared-memory staging, a p99 that 48
    halvings leave below the k-th valid latency, ct not dividing C and
@@ -33,7 +35,12 @@ arguments it
    eight policies at two shapes (the final tables and window loads bit for
    bit, the choices and latencies at level 1, zeros past the dropped
    phase), level 0 against the unablated launch, and the 2-D form's
-   refusal of a level; and flash
+   refusal of a level; the domain past the old 1024 caps (`check_domain`):
+   both forms and the merge at M_pad 2048 with window 2048 and M_pad 4096
+   with window 1024 for the six engine policies, each shape's shared
+   memory against the card's opt-in budget, the 1-D kernel's time there,
+   `sched_select` at N = 2048, and an input past the budget refused
+   before launch, its message printed; and flash
    attention at the JAX tests' six cases, non-causal, tile sweeps,
    ``is_global``, gemma-2b's serving shape and danube-like shapes (head
    dim 120, GQA 4, sliding window, ragged S), each f32 case also in
@@ -50,13 +57,23 @@ arguments it
    `TrialResult` field held against the same prep scheduled by the plain
    versions on the card (the trials of seed 0, drawn from threefry keys
    as the JAX package draws them, so they are its trials); then the
+   sharded sweep (`repro_torch.parallel.sweep`): (a) both sweeps with
+   ``mesh_shape=(1,)`` and ``(1, 1)`` in an NCCL world of one, counts
+   zeroed before and read after, every field equal to the unsharded
+   run's; (b) gloo worlds of 2 and 4 ranks sharing the card, each rank a
+   process of this script launching the kernels on its shard: (2,) and
+   (4,) on the shared-log sweep, (2, 2) on per_client 200 and on a padded
+   per_client case (T = 5, C = 7), every rank's fields equal to the
+   unsharded run's (a client-sharded sweep's window loads to the
+   two-level client mean, `policy_core.sharded_client_mean`), the walls
+   printed (not a speed figure: the ranks share one card); then the
    paper evaluation: (a) the threefry kernel against its plain version,
    bit for bit, from 1 to 10^6 counters a key and over batched keys; (b)
    the §4 prep (shared log with stragglers, per_client 200) drawn on the
    card under torch's sync debug mode against the same prep drawn on
-   this machine's CPU: workloads, masks, traces, keys and seeds
-   bit-identical, the initial loads within one ulp, the count that
-   differs printed (the CPU tests hold the CPU's draws against JAX); (c)
+   this machine's CPU: workloads, masks, traces, keys, seeds and the
+   initial loads bit-identical (the CPU tests hold the CPU's draws
+   against JAX); (c)
    `run_paper_eval(seed=0)` and `run_scenario_eval(seed=0)` at the §4
    defaults on the kernel backend, counts zeroed before and read after
    (31 stream kernel launches and the threefry draws), each label's mean
@@ -189,8 +206,8 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 4
 THREEFRY_OPS = 20 * 3 + 5 * 3 + 2 + 2 + 1
 
 BODY_POLICIES = tuple(skernel.POLICY_CODES)
-# (T, M, W, window, table): a few streams; T above the 132 SMs at one warp per block; the window and M_pad
-# at their 1024 caps; initial tables (`initial_tables`) of -0.0 and +0.0
+# (T, M, W, window, table): a few streams; T above the 132 SMs at one warp
+# per block; the window and M_pad at 1024; initial tables (`initial_tables`) of -0.0 and +0.0
 # loads with exactly tied scores, with an est row ewma does not give, and
 # where a padding lane wins ect's argmin
 CHECK_SHAPES = ((5, 37, 4, 32, "init"), (7, 130, 3, 50, "init"),
@@ -200,8 +217,8 @@ CHECK_SHAPES = ((5, 37, 4, 32, "init"), (7, 130, 3, 50, "init"),
 # (T, C, M, W, window, client_tile, phantom clients): C not a multiple of
 # the client tile, whole phantom clients; N = 16 and 17 on either side of
 # the 2-D form's p99 held in registers (N <= its 16 lanes per stream);
-# N = 32 and 33, the 1-D form's edge; the window and M_pad at their 1024
-# caps, two streams to a warp
+# N = 32 and 33, the 1-D form's edge; the window and M_pad at 1024, two
+# streams to a warp
 GRID_SHAPES = ((3, 7, 37, 3, 16, 2, 2), (5, 40, 130, 2, 10, 32, 3),
                (2, 9, 37, 1, 16, 4, 1), (2, 9, 37, 1, 17, 4, 1),
                (2, 9, 37, 2, 16, 4, 1), (2, 9, 37, 3, 11, 4, 1),
@@ -813,6 +830,306 @@ def check_per_client(results, cfg, log, pols, dev):
     return err_streams, err_merge
 
 
+# -- the sharded sweep (repro_torch.parallel.sweep) ---------------------------
+
+# phase (b)'s gloo worlds: world size -> (case, mesh shape) in run order
+SWEEP_WORLDS = {2: (("shared_log", (2,)),),
+                4: (("shared_log", (4,)), ("per_client", (2, 2)),
+                    ("padded", (2, 2)))}
+SWEEP_TIMEOUT_S = 300  # a world's ranks, from spawn to exit
+GLOO_NOTE = ("gloo ranks sharing one card, collectives through host "
+             "memory: not a speed figure for any deployment")
+
+
+def engine_pols():
+    """The six engine policies with the main paths' thresholds."""
+    return {p: PolicyConfig(name=p, threshold=0.05 if p == "ect" else 5.0)
+            for p in KERNEL_POLICIES}
+
+
+def paper_cfgs():
+    """(config, log config) by case: the §4 sweep with transient
+    stragglers on one shared log and per_client (200 clients), and the
+    sharded phase's padded per_client case (T = 5, C = 7: neither divides
+    a (2, 2) mesh)."""
+    cfg = simulate.SimConfig(scenario=simulate.ScenarioConfig("transient"))
+    pc_cfg = dataclasses.replace(cfg, client_model="per_client")
+    padded = dataclasses.replace(pc_cfg, n_trials=5, n_clients=7)
+    return {name: (c, simulate.default_log_cfg(c)) for name, c in
+            (("shared_log", cfg), ("per_client", pc_cfg),
+             ("padded", padded))}
+
+
+def timed_run(cfg, pol, log):
+    """`run_trials` of seed 0 and its wall in ms, to the device's end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate.run_trials(0, cfg, pol, log)
+    torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def client_sharded_loads(cfg, log, pol, c_dev, dev):
+    """The window loads a sweep whose clients are split over ``c_dev``
+    ranks gives: `policy_core.sharded_client_mean` (the rank axis as one
+    more association level) over the unsharded per-client window loads
+    of the kernel path, at the resolved client tile."""
+    _, _, works, states, traces, k_sched = prep(cfg, log, dev)
+    c, per, pad, win = simulate._client_split_shape(cfg)
+    t = works.object_ids.shape[0]
+    run_works = simulate._split_clients(works, c, per, pad)
+    run_states = type(states)(*(x[:, None].expand((t, c) + x.shape[1:])
+                                for x in states))
+    res, _, _ = engine.run_stream_batch(
+        run_states, run_works, random.split(k_sched, c), policy=pol,
+        log_cfg=log, window_size=win, traces=traces,
+        window_dt=simulate._window_dt(cfg), observe=simulate._observe(cfg))
+    cvalid = run_works.valid.any(dim=-1)
+    ct = policy_core.resolve_client_tile(c, cfg.client_tile)
+    return torch.stack([policy_core.sharded_client_mean(
+        res.window_loads[i], cvalid[i], ct, c_dev) for i in range(t)])
+
+
+def check_sharded(label, got, want, loads=None):
+    """Every `TrialResult` field of ``got`` (a field dict) equal to
+    ``want``'s, bit for bit; with ``loads`` the window loads equal to it
+    (a client-sharded sweep's two-level mean) instead."""
+    want = dict(want._asdict(), **({} if loads is None
+                                   else {"window_loads": loads}))
+    bad = [f for f, v in want.items()
+           if not (same_bits(got[f].to(v.device), v) if v.is_floating_point()
+                   else torch.equal(got[f].to(v.device), v))]
+    if bad:
+        fail(f"{label}: differs from the unsharded run in {bad}")
+
+
+def run_sharded_world_of_one(cfgs, pols, unsharded, card):
+    """(a) `run_trials` with ``mesh_shape=(1,)`` (shared log) and
+    ``(1, 1)`` (per_client 200) in the NCCL world of one that
+    `make_sweep_mesh` starts without a process group, counts zeroed just
+    before each sweep and read just after: every field equal to the
+    unsharded run's, one launch of each kernel of the path a run.
+    Returns the counts by case."""
+    import torch.distributed as dist
+    counts = {}
+    for name, shape, expect in (
+            ("shared_log", (1,), ("sched_stream",)),
+            ("per_client", (1, 1), ("sched_stream_grid", "client_merge"))):
+        cfg, log = cfgs[name]
+        mcfg = dataclasses.replace(cfg, mesh_shape=shape)
+        zero_counts()
+        walls = []
+        for p, pol in pols.items():
+            res, wall = timed_run(mcfg, pol, log)
+            walls.append(wall)
+            check_sharded(f"(a) {name} mesh {shape} {p}", res._asdict(),
+                          unsharded[name][p])
+        counts[name] = all_counts()
+        if but_threefry(counts[name]) != {
+                k: len(pols) * int(k in expect)
+                for k in but_threefry(counts[name])}:
+            fail(f"(a) {name} mesh {shape} launched {counts[name]}")
+        print(f"sharded (a) {name} mesh {shape}, world of one on "
+              f"{dist.get_backend()}: six policies bit-identical to the "
+              f"unsharded run, launches {counts[name]}; run_trials walls "
+              f"{', '.join(f'{w:.1f}' for w in walls)} ms (the first "
+              f"builds the mesh) on {card}")
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail("(a) the world of one is not NCCL's")
+    dist.destroy_process_group()
+    return counts
+
+
+def sweep_rank_main(rank: int, world: int, tmp: str) -> None:
+    """`python3 chip_smoke.py --sweep-rank RANK WORLD DIR`: one rank of a
+    gloo world on the card (the kernels already built), joined through a
+    `FileStore` in DIR.  Runs its world's `SWEEP_WORLDS` cases for the six
+    policies, counts zeroed before each run and read after, and saves the
+    results, counts and walls to ``DIR/w<WORLD>-rank<RANK>.pt``."""
+    import datetime
+    import torch.distributed as dist
+    warnings.filterwarnings("ignore", message=PER_CLIENT_NOTE)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / f"store{world}"),
+                                     world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SWEEP_TIMEOUT_S))
+    cfgs, out = paper_cfgs(), {}
+    for case, shape in SWEEP_WORLDS[world]:
+        cfg, log = cfgs[case]
+        mcfg = dataclasses.replace(cfg, mesh_shape=shape)
+        for p, pol in engine_pols().items():
+            zero_counts()
+            res, wall = timed_run(mcfg, pol, log)
+            out[case, p] = dict(result={f: v.cpu() for f, v in
+                                        res._asdict().items()},
+                                counts=all_counts(), wall_ms=wall)
+    torch.save(out, Path(tmp) / f"w{world}-rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_gloo_worlds(cfgs, pols, unsharded, dev, card):
+    """(b) gloo worlds of 2 and 4 ranks sharing the card, each rank a
+    process of this script (`sweep_rank_main`) launching the CUDA kernels
+    on its shard: (2,) and (4,) on the shared-log sweep, (2, 2) on
+    per_client 200 and on the padded case.  Every rank's fields equal the
+    unsharded run's (the client-sharded window loads equal
+    `client_sharded_loads`), and every rank's run launched each kernel of
+    its path once.  A rank that fails or times out fails the phase.
+    Returns the walls by (world, case)."""
+    pad_cfg, pad_log = cfgs["padded"]
+    unsharded = dict(unsharded, padded={
+        p: simulate.run_trials(0, pad_cfg, pol, pad_log)
+        for p, pol in pols.items()})
+    loads = {case: {p: client_sharded_loads(*cfgs[case], pol, 2, dev)
+                    for p, pol in pols.items()}
+             for case in ("per_client", "padded")}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sweep_"))
+    walls = {}
+    try:
+        for world, cases in SWEEP_WORLDS.items():
+            t0 = time.perf_counter()
+            logs = [open(tmp / f"w{world}-rank{r}.log", "w")
+                    for r in range(world)]
+            procs = [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--sweep-rank", str(r), str(world), str(tmp)],
+                stdout=logs[r], stderr=subprocess.STDOUT)
+                for r in range(world)]
+            failed = []
+            for r, proc in enumerate(procs):
+                left = SWEEP_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    code = proc.wait(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    code = "a timeout"
+                if code != 0:
+                    failed.append(r)
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for f in logs:
+                f.close()
+            if failed:
+                tails = "\n".join(
+                    f"rank {r}: "
+                    + (tmp / f"w{world}-rank{r}.log").read_text()[-2000:]
+                    for r in failed)
+                fail(f"(b) world of {world}: ranks {failed} failed\n{tails}")
+            ranks = [torch.load(tmp / f"w{world}-rank{r}.pt")
+                     for r in range(world)]
+            for case, shape in cases:
+                expect = ("sched_stream",) if case == "shared_log" else (
+                    "sched_stream_grid", "client_merge")
+                for p in pols:
+                    for r, got in enumerate(ranks):
+                        one = got[case, p]
+                        check_sharded(
+                            f"(b) world {world} {case} mesh {shape} {p} "
+                            f"rank {r}", one["result"],
+                            unsharded[case][p],
+                            loads[case][p] if len(shape) == 2 else None)
+                        step = but_threefry(one["counts"])
+                        if step != {k: int(k in expect) for k in step} \
+                                or one["counts"]["threefry"] < 1:
+                            fail(f"(b) world {world} {case} {p} rank {r} "
+                                 f"launched {one['counts']}")
+                walls[world, case] = [ranks[0][case, p]["wall_ms"]
+                                      for p in pols]
+                cfg = cfgs[case][0]
+                print(f"sharded (b) {case} (T={cfg.n_trials}"
+                      + (f", C={cfg.n_clients}"
+                         if cfg.client_model == "per_client" else "")
+                      + f") mesh {shape} on a gloo world of {world}: every "
+                      "rank bit-identical to the unsharded run"
+                      + (" (window loads to the two-level client mean)"
+                         if len(shape) == 2 else "")
+                      + ", one launch of each kernel of the path per rank "
+                      "and run; rank 0's run_trials walls "
+                      + ", ".join(f"{w:.1f}" for w in walls[world, case])
+                      + f" ms on {card} ({GLOO_NOTE})")
+            print(f"  (world of {world}: {time.perf_counter() - t0:.1f} s "
+                  "with the ranks' start)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
+# -- the lifted domain: past the old 1024 caps --------------------------------
+
+# (M, window): M_pad 2048 with window 2048, M_pad 4096 with window 1024
+DOMAIN_SHAPES = ((2000, 2048), (4000, 1024))
+# a stream past every policy's budget on the H100: M_pad 8192, window 1024
+OVER_BUDGET = (8142, 1024)
+
+
+def check_domain(dev, card):
+    """(c) The stream kernel at `DOMAIN_SHAPES`, past the caps that held
+    before the shared-memory budget did: both forms and the merge against
+    their plain versions for the six engine policies (the 1-D form at
+    T = 2; the 2-D form at T = 1, C = 3 with a phantom client, the merge
+    as mean and as sum in turn), each shape's budget and launch shape, and
+    the 1-D kernel timed at T = 4; `sched_select` at N = 2048; an input
+    past the budget refused before launch.  Returns the largest
+    differences (1-D, 2-D, merge) and the times by shape and policy."""
+    errs, times = [0.0, 0.0, 0.0], {}
+    for i, (m, win) in enumerate(DOMAIN_SHAPES):
+        m_pad = sops._pad_servers(m)
+        for j, policy in enumerate(KERNEL_POLICIES):
+            errs[0] = max(errs[0], check_case(2, m, 1, win, "init", policy,
+                                              7000 + 10 * i + j, dev))
+            e_s, e_m = check_grid_case((1, 3, m, 1, win, 2, 1), policy,
+                                       j % 2 == 0, 7100 + 10 * i + j, dev)
+            errs[1], errs[2] = max(errs[1], e_s), max(errs[2], e_m)
+            need, budget = skernel.stream_budget(policy, m_pad, win)
+            occ = {form: skernel.stream_occupancy(form, policy, m, m_pad,
+                                                  win)
+                   for form in ("sched_stream", "sched_stream_grid")}
+            args = stream_operands(4, m, 1, win, "init", 7200 + j, dev)
+            kw = dict(KW, n_servers=m, window_size=win, policy=policy)
+            ms = timed_ms(lambda: sops.sched_stream_batch(*args, **kw),
+                          reps=5)
+            times[f"M_pad={m_pad},window={win},{policy}"] = ms
+            print(f"domain M={m} (M_pad {m_pad}) window {win} {policy:>10s}:"
+                  f" {need} of {budget} bytes of shared memory a stream; "
+                  f"1-D kernel {ms:.4f} ms a launch at T=4 on {card}; "
+                  f"blocks per SM 1-D {occ['sched_stream'][0]}, 2-D "
+                  f"{occ['sched_stream_grid'][0]} of "
+                  f"{occ['sched_stream_grid'][1]} streams (two share a "
+                  "warp where both fit)")
+    rng = np.random.default_rng(13)
+    c, n, m = 4, 2048, 100
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 8 * m, (c, n)).astype(np.int32),
+        rng.uniform(1.0, 20.0, (c, n)).astype(np.float32),
+        rng.uniform(0.0, 60.0, (c, m)).astype(np.float32),
+        rng.integers(0, 2 ** 32, (c,)))]
+    for policy in sops.STATIC_POLICIES:
+        kw = dict(n_servers=m, threshold=2.0, lam=50.0, policy=policy)
+        got = sops.sched_select(*args, **kw)
+        want = sops.sched_select_plain(*args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"sched_select at N={n} disagrees with its plain version")
+    print(f"domain sched_select C={c} N={n} M={m}: bit-exact, both "
+          "policies")
+    m, win = OVER_BUDGET
+    args = stream_operands(2, m, 1, win, "init", 7300, dev)
+    before = dict(skernel.LAUNCHES)
+    try:
+        sops.sched_stream_batch(*args, **dict(KW, n_servers=m,
+                                               window_size=win,
+                                               policy="ect"))
+    except ValueError as err:
+        print(f"domain M={m} window {win}: refused before launch: {err}")
+    else:
+        fail(f"M={m}, window {win} launched past the shared-memory budget")
+    if skernel.LAUNCHES != before:
+        fail("the refused input launched a kernel")
+    return errs, times
+
+
 # -- the profiling and tuning path --------------------------------------------
 
 
@@ -1096,10 +1413,8 @@ def stream_seeds(cfg, k_sched):
 def check_prep_on_card(runs, dev):
     """(b) The §4 prep on the card, under torch's sync debug mode (a read
     back to the host raises), against the same prep drawn on this
-    machine's CPU: workloads, masks, traces, scheduler keys and LCG seeds
-    bit-identical, the log's other rows too, the initial loads within one
-    ulp (the normal's float64 log1p); prints the count of loads that
-    differ."""
+    machine's CPU: workloads, masks, traces, scheduler keys, LCG seeds,
+    the initial loads and the whole log bit-identical."""
     for name, cfg, log in runs:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
@@ -1112,10 +1427,10 @@ def check_prep_on_card(runs, dev):
         torch.cuda.synchronize()
         cpu = simulate._prep_trials(simulate.trial_keys(0, cfg, "cpu"), cfg,
                                     log)
-        rest = lambda p, sd: [p[1], *p[2], *p[3][1:],  # noqa: E731
-                              p[3].log[:, 1:], *(p[4] or ()), p[5], sd]
-        names = ["straggler_mask", "object_ids", "lengths", "valid",
-                 "n_assigned", "rates", "vclock", "free_at", "log rows 1-3",
+        rest = lambda p, sd: [p[1], *p[2], *p[3], *(p[4] or ()),  # noqa
+                              p[5], sd]
+        names = ["straggler_mask", "object_ids", "lengths", "valid", "log",
+                 "n_assigned", "rates", "vclock", "free_at",
                  "trace times", "trace rates", "k_sched", "seeds"]
         for f, a, b in zip(names, rest(card, seeds),
                            rest(cpu, stream_seeds(cfg, cpu[5]))):
@@ -1125,14 +1440,15 @@ def check_prep_on_card(runs, dev):
         init, cinit = card[0].cpu().numpy(), cpu[0].numpy()
         ulp = np.abs(init.view(np.int32).astype(np.int64)
                      - cinit.view(np.int32).astype(np.int64))
-        if ulp.max() > 1:
-            fail(f"{name} prep: initial loads {ulp.max()} ulp apart")
+        if ulp.max() > 0:
+            fail(f"{name} prep: {int((ulp > 0).sum())} of {ulp.size} "
+                 f"initial loads differ between the card and the CPU (up to "
+                 f"{ulp.max()} ulp)")
         print(f"paper eval (b), {name} prep (T={cfg.n_trials}, "
               f"R={cfg.n_requests}, M={cfg.n_servers}, straggler_frac "
               f"{cfg.straggler_frac}): no host sync on the card; workloads, "
-              "masks, traces, keys and seeds bit-identical to this machine's"
-              f" CPU; initial loads differing: {int((ulp > 0).sum())} of "
-              f"{ulp.size} (at most 1 ulp)")
+              "masks, traces, keys, seeds, the log and the initial loads "
+              f"({ulp.size}) bit-identical to this machine's CPU")
 
 
 def label_line(label, res):
@@ -1477,6 +1793,7 @@ def time_per_client(cfg, log, pols, dev, card):
     for p, pol in pols.items():
         kargs, kkw = main_path_operands(cfg, log, pol, dev, "stream_grid")
         tiles[p] = kkw.pop("client_tile")
+        kkw.pop("merge_mean")
         operands[p] = kargs, kkw
     kargs, kkw = operands["ect"]
     merge_kw = dict(client_tile=policy_core.resolve_client_tile(
@@ -2279,20 +2596,21 @@ def main() -> None:
     err_merge = max(err_merge, check_merge_cases(dev))
     check_select(dev)
     err_1d = max(err_1d, check_ablate(dev))
+    t0 = time.perf_counter()
+    (e_1d, e_s, e_m), domain_ms = check_domain(dev, card)
+    err_1d, err_grid, err_merge = (max(err_1d, e_1d), max(err_grid, e_s),
+                                   max(err_merge, e_m))
+    print(f"domain phase: {time.perf_counter() - t0:.1f} s")
 
     # -- the main paths at the paper's §4 size -----------------------------
-    pols = {p: PolicyConfig(name=p, threshold=0.05 if p == "ect" else 5.0)
-            for p in KERNEL_POLICIES}
-    cfg = simulate.SimConfig(scenario=simulate.ScenarioConfig("transient"))
-    log = simulate.default_log_cfg(cfg)
+    pols = engine_pols()
+    cfgs = paper_cfgs()
+    cfg, log = cfgs["shared_log"]
     shared_results, shared_counts = run_main_path(
         "shared_log", cfg, log, pols, dev, ("sched_stream",))
     check_shared_log(shared_results, cfg, log, pols, dev)
 
-    pc_cfg = simulate.SimConfig(
-        client_model="per_client",
-        scenario=simulate.ScenarioConfig("transient"))
-    pc_log = simulate.default_log_cfg(pc_cfg)
+    pc_cfg, pc_log = cfgs["per_client"]
     c, per, _, win = simulate._client_split_shape(pc_cfg)
     print(f"per_client: {c} clients of {per} requests, window "
           f"{pc_cfg.window_size} clamped to {win}")
@@ -2301,6 +2619,13 @@ def main() -> None:
         ("sched_stream_grid", "client_merge"))
     e_s, e_m = check_per_client(pc_results, pc_cfg, pc_log, pols, dev)
     err_grid, err_merge = max(err_grid, e_s), max(err_merge, e_m)
+
+    # -- the sharded sweep: a world of one, gloo worlds on the card ---------
+    t0 = time.perf_counter()
+    unsharded = {"shared_log": shared_results, "per_client": pc_results}
+    sharded_counts = run_sharded_world_of_one(cfgs, pols, unsharded, card)
+    run_gloo_worlds(cfgs, pols, unsharded, dev, card)
+    print(f"sharded sweep phase: {time.perf_counter() - t0:.1f} s")
 
     # -- the paper evaluation on threefry keys -----------------------------
     t_paper = time.perf_counter()
@@ -2373,16 +2698,20 @@ def main() -> None:
              sequential_launches=seq_launches,
              host_path_launches=host_launches,
              eager_launches=eager_counts["shared_log"]["sched_stream"],
-             levels_ms=split),
+             sharded_launches=sharded_counts["shared_log"]["sched_stream"],
+             domain_ms=domain_ms, levels_ms=split),
         dict(name="sched_stream_grid", route="cuda", source=src,
              replaces=f"{ref}:177",
              launches=pc_counts["sched_stream_grid"], max_abs_err=err_grid,
              eager_launches=eager_counts["per_client"]["sched_stream_grid"],
+             sharded_launches=sharded_counts["per_client"][
+                 "sched_stream_grid"],
              library_ms=None, **t_grid),
         dict(name="client_merge", route="cuda", source=src,
              replaces=f"{ref}:558", launches=pc_counts["client_merge"],
              max_abs_err=err_merge,
              eager_launches=eager_counts["per_client"]["client_merge"],
+             sharded_launches=sharded_counts["per_client"]["client_merge"],
              library_ms=None, **t_merge),
         *(dict(name=f"flash_attention_{r}", route="cuda",
                source=f"src/repro_torch/kernels/flash_attention/csrc/{f}",
@@ -2417,6 +2746,8 @@ def main_host_path() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--walls"] and len(sys.argv) == 3:
         compare_walls(Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
+        sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] == ["--host-path"]:
         main_host_path()
     else:

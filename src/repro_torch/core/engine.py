@@ -95,6 +95,7 @@ class ClientMerge(NamedTuple):
     the REAL clients (a client is real iff it scheduled a valid step)."""
 
     window_loads_mean: torch.Tensor  # (T, W, M) masked client-mean loads
+    #   (the raw masked client sums under merge_mean=False)
     metrics: torch.Tensor            # (T, N_CMETRICS) merged MET_* rows
     lats: torch.Tensor               # (T, C, N) masked grouped-step latencies
     lats_valid: torch.Tensor         # (T, C, N) 0/1 float32 validity
@@ -424,10 +425,10 @@ def run_stream(state: SchedState, work: Workload, key: torch.Tensor, *,
     eager engine over any leading batch axes; ``"kernel"`` runs the
     stream kernel, one launch per call, for one stream or a (T,) batch
     (`ops.sched_stream`).  The two agree bit for bit, the randomized
-    policies under ``PolicyConfig(rng="lcg")``.  The kernel caps the
-    window and the padded server count at 1024
-    (`kernels.sched_select.kernel.MAX_WINDOW`); the eager engine has no
-    cap."""
+    policies under ``PolicyConfig(rng="lcg")``.  The kernel takes a
+    window and padded server count whose stream fits a block's shared
+    memory (`kernels.sched_select.kernel.check_stream_domain`); the eager
+    engine has no cap."""
     validate_policy(policy, state.n_servers)
     if observe is None:
         observe = trace is not None
@@ -543,7 +544,8 @@ def run_stream_batch(states: SchedState, works: Workload, keys: torch.Tensor,
                      window_size: int,
                      traces: Optional[ClusterTrace] = None,
                      window_dt: float = 0.0, observe: Optional[bool] = None,
-                     trial_tile=None, client_tile=None, ablate: int = 0,
+                     trial_tile=None, client_tile=None,
+                     merge_mean: bool = True, ablate: int = 0,
                      backend: str = "kernel",
                      stream_batch=kops.sched_stream_batch,
                      stream_grid=kops.sched_stream_grid):
@@ -561,7 +563,10 @@ def run_stream_batch(states: SchedState, works: Workload, keys: torch.Tensor,
     ``window_dt`` seconds.  ``trial_tile`` is the stream kernel's warps
     per block (a launch shape; None: the kernel's default).
     ``client_tile`` (``(T, C)`` only) is the cross-client merge's
-    association width (see `ops.sched_stream_grid`).  ``ablate`` (``(T,)``
+    association width (see `ops.sched_stream_grid`); ``merge_mean=False``
+    has the merge return its raw masked client sums, the input of the
+    sharded sweep (`repro_torch.parallel.sweep`), since a mean does not
+    compose across ranks.  ``ablate`` (``(T,)``
     only) drops the kernel's trailing phases for the differential phase
     profile (`repro_torch.tune.profile.kernel_phase_profile`); outputs
     past the dropped phase are zeros, so a nonzero level is for timing.
@@ -643,7 +648,8 @@ def run_stream_batch(states: SchedState, works: Workload, keys: torch.Tensor,
             (choices, lats, tables, wloads, metrics, cm_wl, cm_met, cm_lats,
              cm_lval) = stream_grid(steps(g_obj), steps(g_lens),
                                     steps(g_val), states.log, seeds,
-                                    win_rates, client_tile=client_tile, **kw)
+                                    win_rates, client_tile=client_tile,
+                                    merge_mean=merge_mean, **kw)
             merged = ClientMerge(window_loads_mean=cm_wl, metrics=cm_met,
                                  lats=cm_lats, lats_valid=cm_lval)
         else:

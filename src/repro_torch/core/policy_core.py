@@ -26,6 +26,7 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -653,3 +654,82 @@ def client_stream_metrics(metrics: torch.Tensor, client_valid: torch.Tensor,
     return torch.stack([mx[..., MET_MAKESPAN], p99, sm[..., MET_LAT_SUM],
                         mx[..., MET_LAT_MAX], sm[..., MET_N_VALID], n_real],
                        dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sharded cross-client merge: the rank axis as one more association level
+# ---------------------------------------------------------------------------
+
+
+def resolve_shard_width(n_clients: int, n_shards: int) -> int:
+    """Clients per contiguous shard of the client axis: the rank-axis
+    twin of `resolve_client_tile`, shared by the sharded sweep
+    (`repro_torch.parallel.sweep`) and the host oracle
+    `sharded_client_sum`, so both pad and split the client axis alike
+    (trailing shards fill up with phantom clients)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards={n_shards!r} must be >= 1")
+    return -(-n_clients // n_shards)
+
+
+def all_gather_stack(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` from every rank of ``group``, stacked on a new leading axis
+    in the group's rank order, on ``x``'s device.  A copy, so exact; a
+    gloo group moves CUDA tensors through host memory, and bool tensors
+    travel as uint8."""
+    stage = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    src = x.to(torch.uint8) if x.dtype == torch.bool else x
+    src = (src.cpu() if stage else src).contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(device=x.device, dtype=x.dtype)
+
+
+def psum_tree(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Cross-rank sum over ``group`` in a pinned order: the collective
+    twin of `tree_sum`.  Every rank gathers every rank's partial in rank
+    order and folds the stack by the halving tree, so the result is the
+    same on every rank and equal to the host oracle's outer fold
+    (`sharded_client_sum`).  Never ``all_reduce``, whose order of
+    addition is the backend's choice."""
+    return tree_sum(all_gather_stack(x, group), 0)[0]
+
+
+def sharded_client_sum(x: torch.Tensor, client_valid: torch.Tensor,
+                       client_tile, n_shards: int) -> torch.Tensor:
+    """Host oracle of the sharded cross-client merge: what the sharded
+    sweep computes with the client axis split over ``n_shards`` ranks.
+    The client axis (leading) pads with phantoms to ``n_shards`` equal
+    contiguous shards of `resolve_shard_width` clients; each shard is a
+    `masked_client_sum` with ``client_tile`` resolved against the shard
+    width (as each rank's merge resolves it against its local client
+    count); `tree_sum` folds the shard partials.  ``n_shards == 1`` is
+    `masked_client_sum` with the unsharded tile.  ``client_tile`` may be
+    None (the default tile)."""
+    c = x.shape[0]
+    w = resolve_shard_width(c, n_shards)
+    if w * n_shards != c:
+        x = torch.cat([x, x.new_zeros((w * n_shards - c,) + x.shape[1:])])
+        client_valid = torch.cat([client_valid, client_valid.new_zeros(
+            (w * n_shards - c,) + client_valid.shape[1:])])
+    ct = resolve_client_tile(w, client_tile)
+    parts = torch.stack([
+        masked_client_sum(x[s * w:(s + 1) * w],
+                          client_valid[s * w:(s + 1) * w], ct)
+        for s in range(n_shards)])
+    return tree_sum(parts, 0)[0]
+
+
+def sharded_client_mean(x: torch.Tensor, client_valid: torch.Tensor,
+                        client_tile, n_shards: int) -> torch.Tensor:
+    """Sharded twin of `masked_client_mean`: the shard-merged sum over the
+    shard-merged real-client count (at least 1), divided once after the
+    fold, since a mean does not compose across ranks (the merge kernel
+    ships raw sums under ``merge_mean=False`` for that reason)."""
+    total = sharded_client_sum(x, client_valid, client_tile, n_shards)
+    n_real = sharded_client_sum(
+        torch.ones(client_valid.shape, dtype=x.dtype, device=x.device),
+        client_valid, client_tile, n_shards)
+    denom = torch.clamp_min(n_real, 1.0)
+    return total / denom.reshape(denom.shape
+                                 + (1,) * (total.ndim - denom.ndim))

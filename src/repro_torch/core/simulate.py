@@ -18,14 +18,16 @@ temporal straggler scenarios, under one of two client models:
 * `_prep_trials`  — workloads, initial loads, the absorbed ``(4, M)`` log
   tables, the scenario rate traces and the scheduler keys, drawn from
   the trials' threefry keys (`repro_torch.random`) as the reference
-  draws them, so one seed gives the reference's trials (the initial
-  loads to `random.NORMAL_ULP`, see there);
+  draws them, so one seed gives the reference's trials;
 * `_sched_trials` — every stream in ONE launch of the stream kernel, plus
   one of the cross-client merge under per_client
   (`engine.run_stream_batch`), with the tiles resolved once by
   `repro_torch.tune.table.resolve_sim_tiles`; or, under
   ``SimConfig(backend="jax")``, on the eager engine, with the
   cross-client fold as tensor code at the same resolved client tile;
+  under ``SimConfig(mesh_shape=...)`` sharded over the ranks of a
+  ``torch.distributed`` world (`repro_torch.parallel.sweep`), every rank
+  calling `run_trials` alike and receiving the whole result;
 * `_post_trials`  — the per-trial `TrialResult` bookkeeping.
 
 The port's default backend is ``"kernel"``; the reference's is ``"jax"``.
@@ -38,6 +40,8 @@ are its evaluation entry points, with its labels and defaults.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -51,6 +55,7 @@ from repro_torch.core.policy_core import F32, f32
 from repro_torch.core.statlog import LogConfig, SchedState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sched_select import ops as kops
+from repro_torch.parallel import sweep
 from repro_torch.tune import profile as tune_profile
 from repro_torch.tune import table as tune_table
 
@@ -100,8 +105,11 @@ class SimConfig:
     policies draw from threefry keys under ``PolicyConfig(rng="jax")``
     and from the kernel's LCG under ``rng="lcg"``).  ``prep`` is
     "batched" (`_trial_setup` over the key batch) or "sequential" (one
-    trial at a time: the parity oracle).  ``mesh_shape`` raises until its
-    slice lands."""
+    trial at a time: the parity oracle).  ``mesh_shape`` is None (one
+    device) or ``(trials,)`` / ``(trials, clients)`` rank counts of the
+    sharded sweep (`repro_torch.launch.mesh.make_sweep_mesh`), a client
+    axis only under per_client; every rank of the world runs the same
+    `run_trials` and gets the same result."""
 
     n_servers: int = 100
     n_clients: int = 200
@@ -160,9 +168,26 @@ class SimConfig:
                 "the key batch) or 'sequential' (one trial at a time, the "
                 "parity oracle)")
         if self.mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape!r}: the sharded sweep waits "
-                "for ROADMAP Queue A10")
+            try:
+                ms = tuple(int(s) for s in self.mesh_shape)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"mesh_shape={self.mesh_shape!r} must be a tuple of 1 "
+                    "or 2 positive rank counts ((trials,) or (trials, "
+                    "clients)), or None for the single-device dispatch"
+                ) from None
+            object.__setattr__(self, "mesh_shape", ms)
+            if len(ms) not in (1, 2) or any(s < 1 for s in ms):
+                raise ValueError(
+                    f"mesh_shape={ms!r} must be (trials,) or (trials, "
+                    "clients) positive rank counts (or None for the "
+                    "single-device dispatch)")
+            if len(ms) == 2 and ms[1] > 1 \
+                    and self.client_model != "per_client":
+                raise ValueError(
+                    f"mesh_shape={ms} shards a client axis but "
+                    f"client_model={self.client_model!r} has none: use "
+                    "client_model='per_client' or a (trials,) mesh")
 
     @property
     def n_windows(self) -> int:
@@ -445,7 +470,11 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     configured window size; the probe sum is an integer sum over the
     real clients; on the eager engine the window loads are
     `policy_core.masked_client_mean` at the resolved client tile, the
-    association the merge kernel keeps."""
+    association the merge kernel keeps.
+
+    With ``cfg.mesh_shape`` the same dispatch runs sharded
+    (`parallel.sweep.run_sweep`), and the per_client fold takes its
+    `parallel.sweep.SweepMerge` rows."""
     window_dt = _window_dt(cfg)
     per_client = cfg.client_model == "per_client"
     # THE tile resolution point: the pair is resolved once, whichever mode
@@ -455,15 +484,20 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
         n_servers=cfg.n_servers, n_requests=cfg.n_requests,
         n_clients=(cfg.n_clients if per_client else 1),
         n_trials=cfg.n_trials, window_size=cfg.window_size,
+        device_count=math.prod(cfg.mesh_shape or (1,)),
         form=("grid" if per_client else "batch"),
         trial_tile=cfg.trial_tile, client_tile=cfg.client_tile)
     run = dict(policy=policy, log_cfg=log_cfg, traces=traces,
                window_dt=window_dt, observe=_observe(cfg),
                trial_tile=trial_tile, backend=cfg.backend,
                stream_batch=stream_batch, stream_grid=stream_grid)
+    dispatch = engine.run_stream_batch
+    if cfg.mesh_shape is not None:
+        dispatch = functools.partial(sweep.run_sweep,
+                                     mesh_shape=cfg.mesh_shape)
     eager = cfg.backend == "jax"
     if not per_client:
-        res, metrics, _ = engine.run_stream_batch(
+        res, metrics, _ = dispatch(
             states, works, k_sched, window_size=cfg.window_size, **run)
         phase = None if eager else metrics[:, policy_core.MET_MAKESPAN]
         return (res.chosen, res.probe_msgs, res.redirected, res.latencies,
@@ -480,14 +514,18 @@ def _sched_trials(cfg: SimConfig, policy: PolicyConfig, log_cfg: LogConfig,
     run_works = _split_clients(works, c, per, pad)
     run_states = SchedState(*(x[:, None].expand((t, c) + x.shape[1:])
                               for x in states))
-    res, _, merged = engine.run_stream_batch(
+    res, _, merged = dispatch(
         run_states, run_works, random.split(k_sched, c), window_size=win,
         client_tile=client_tile, **run)
     cvalid = run_works.valid.any(dim=-1)                      # (T, C)
     probes = torch.where(cvalid, res.probe_msgs, 0).sum(
         dim=-1, dtype=torch.int32)
     first = lambda x: x.reshape(t, c * per)[:, :r]  # noqa: E731
-    if eager:
+    if cfg.mesh_shape is not None:
+        # the sharded sweep's collective merge, alike on both backends
+        wl, phase, probes = (merged.window_loads_mean, merged.phase_time,
+                             merged.probe_msgs)
+    elif eager:
         # the cross-client fold the merge kernel makes, as tensor code
         wl = policy_core.masked_client_mean(
             res.window_loads.movedim(1, 0), cvalid.T, client_tile)

@@ -4,7 +4,8 @@
 ``kernels/sched_select/kernel.py::sched_stream_call``: T independent
 windowed request streams scheduled in one launch of
 ``csrc/sched_stream.cu`` (a warp per stream, or half of one in the 2-D
-form, the stream's ``(4, M_pad)`` log in shared memory).  `sched_stream_grid_call` is the counterpart of
+form where two streams fit a block, the stream's ``(4, M_pad)`` log in
+shared memory: `check_stream_domain` is the kernel's one limit).  `sched_stream_grid_call` is the counterpart of
 ``sched_stream_grid_call``: the same kernel over the T·C streams of the
 per_client model, then the ``client_merge`` kernel for the per-trial
 cross-client merge.  `sched_select_call` is the legacy single-window
@@ -28,10 +29,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_stream.cu"
 # policy codes of the CUDA source's `Policy` enum
 POLICY_CODES = {"minload": 0, "two_random": 1, "ect": 2, "trh": 3, "rr": 4,
                 "two_choice": 5, "mlml": 6, "nltr": 7}
-MAX_WINDOW = 1024
-MAX_M_PAD = 1024
-# where inputs past the caps do run: the eager engine has no cap (nothing
-# dispatches there on its own)
+# where inputs past the stream kernel's shared-memory budget do run: the
+# eager engine has no cap (nothing dispatches there on its own)
 EAGER_NOTE = ("; SimConfig(backend='jax') or run_stream(backend='jax') "
               "schedules them on the card with the eager engine, which has "
               "no cap")
@@ -75,6 +74,9 @@ def _library():
         lib.sched_stream_occupancy.argtypes = (
             [i32] * 6 + [ctypes.POINTER(i32)] * 3)
         lib.sched_stream_occupancy.restype = ctypes.c_int
+        i64p = ctypes.POINTER(ctypes.c_longlong)
+        lib.sched_stream_budget.argtypes = [i32] * 3 + [i64p] * 2
+        lib.sched_stream_budget.restype = ctypes.c_int
         lib.client_merge_launch.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
         lib.client_merge_launch.restype = ctypes.c_int
         lib.sched_stream_error_string.argtypes = [ctypes.c_int]
@@ -123,6 +125,34 @@ def _raise_on(code: int, what: str) -> None:
                            f"{code} ({msg})")
 
 
+def stream_budget(policy: str, m_pad: int, window_size: int) -> tuple:
+    """(shared-memory bytes one stream of ``policy`` needs at this padded
+    server count and window, the bytes a block of the current CUDA device
+    may opt in to), as the CUDA source counts them
+    (``sched_stream_budget``)."""
+    words, budget = ctypes.c_longlong(), ctypes.c_longlong()
+    _raise_on(_library().sched_stream_budget(
+        POLICY_CODES[policy], int(m_pad), int(window_size),
+        ctypes.byref(words), ctypes.byref(budget)), "sched_stream budget")
+    return 4 * words.value, budget.value
+
+
+def check_stream_domain(policy: str, m_pad: int, window_size: int) -> None:
+    """Raise unless one stream of this shape fits a block's shared memory
+    on the current CUDA device: the stream kernel's only limit on the
+    window and the server count.  The message names the budget, what the
+    input needs and the eager engine, which has no cap."""
+    need, budget = stream_budget(policy, m_pad, window_size)
+    if need > budget:
+        raise ValueError(
+            f"window_size={window_size} with M_pad={m_pad} needs {need} "
+            f"bytes ({need // 4} words) of shared memory a stream under "
+            f"{policy}, past the {budget} bytes a block may take on this "
+            "card (cudaDevAttrMaxSharedMemoryPerBlockOptin), so the CUDA "
+            "stream kernel cannot hold it (the JAX reference has no cap)"
+            f"{EAGER_NOTE}")
+
+
 def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
                     form, lead, n_servers, window_size, threshold, lam, alpha,
                     window_dt, policy, observe, renorm, nltr_n=2,
@@ -141,17 +171,11 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
     n_win = win_rates.shape[1]
     if n != n_win * window_size:
         raise ValueError(f"N={n} is not W*window_size={n_win}*{window_size}")
-    if not 1 <= window_size <= MAX_WINDOW:
-        raise ValueError(f"window_size={window_size} must be in "
-                         f"[1, {MAX_WINDOW}] for the CUDA stream kernel "
-                         "(its limit; the JAX reference has none)"
-                         f"{EAGER_NOTE}")
-    if m_pad > MAX_M_PAD or m_pad % 128 or not 1 <= n_servers <= m_pad:
-        raise ValueError(f"M_pad={m_pad} must be a multiple of 128 up to "
-                         f"{MAX_M_PAD} holding n_servers={n_servers} for the "
-                         "CUDA stream kernel (its limit of M_pad ≤ "
-                         f"{MAX_M_PAD}; the JAX reference has none)"
-                         f"{EAGER_NOTE}")
+    if window_size < 1:
+        raise ValueError(f"window_size={window_size} must be at least 1")
+    if m_pad % 128 or not 1 <= n_servers <= m_pad:
+        raise ValueError(f"M_pad={m_pad} must be a multiple of 128 holding "
+                         f"n_servers={n_servers}")
     _check("object_ids", object_ids, torch.int32, lead + (n,))
     _check("lengths", lengths, torch.float32, lead + (n,))
     _check("valid", valid, torch.int32, lead + (n,))
@@ -175,6 +199,7 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
     for d in lead:
         n_streams *= d
     with torch.cuda.device(dev):
+        check_stream_domain(policy, m_pad, window_size)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _library().sched_stream_launch(
             object_ids.data_ptr(), lengths.data_ptr(), valid.data_ptr(),

@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.policy_core import (N_CMETRICS, N_METRICS, ROW_LOADS,
                                           resolve_client_tile)
-from repro_torch.kernels.sched_select.kernel import (MAX_WINDOW, POLICY_CODES,
+from repro_torch.kernels.sched_select.kernel import (POLICY_CODES,
                                                      SELECT_KW,
                                                      sched_select_call,
                                                      sched_stream_call,
@@ -204,12 +204,6 @@ def _select(fn, object_ids: torch.Tensor, lengths: torch.Tensor,
             policy: str = "minload"):
     if policy not in STATIC_POLICIES:
         raise ValueError(f"kernel policy must be one of {STATIC_POLICIES}")
-    n = object_ids.shape[1]
-    if n > MAX_WINDOW:
-        raise ValueError(f"sched_select schedules N={n} requests as one "
-                         f"window; the CUDA stream kernel caps a window at "
-                         f"MAX_WINDOW={MAX_WINDOW} (its limit; the JAX "
-                         "reference has none)")
     choices, final = fn(object_ids.to(torch.int32).contiguous(),
                         lengths.to(torch.float32).contiguous(),
                         _pad_lanes(init_loads), seeds, n_servers=n_servers,
@@ -223,8 +217,9 @@ def sched_select(object_ids: torch.Tensor, *args, **kw):
     to each client's log, seeds (C,) uint32 states; keywords
     ``n_servers``, ``threshold``, ``lam``, ``policy`` (minload or
     two_random).  Returns (choices (C, N) int32, final_loads (C, M)).
-    N may not exceed the kernel's window cap `kernel.MAX_WINDOW`, on any
-    device."""
+    On the card the N requests are one window of the stream kernel, so a
+    stream of them must fit a block's shared memory
+    (`kernel.check_stream_domain`); the plain version has no cap."""
     return _select(_pick(object_ids, sched_select_call, _select_plain),
                    object_ids, *args, **kw)
 

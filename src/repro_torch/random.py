@@ -14,11 +14,13 @@ the plain version for keys on the CPU.
 * `key`, `split`, `fold_in`, `bits`, `randint`, `uniform`, `permutation`
   and `choice` give jax's values bit for bit.
 * `normal` is ``sqrt(2) * erfinv(u)`` with XLA's single-precision
-  ``ErfInv`` (Giles' polynomial, its multiply-adds rounded once as XLA's
-  CPU backend contracts them), but ``log1p`` is not XLA's: the normal is
-  held to jax's within a few ulp (`NORMAL_ULP`), not bit for bit.  The
-  transcendental steps run in float64 and round to float32, so the draw
-  is the same on the CPU and on the card and at every batch shape.
+  ``ErfInv`` and ``log1p`` as its CPU backend compiles ``jax.random.normal``
+  (Giles' polynomial for ``erfinv``; a rational for small ``|x|`` and
+  XLA's own ``log`` polynomial for ``log1p``), each multiply-add rounded
+  once where that backend contracts it: jax's values bit for bit.  The
+  multiply-adds, the division and the square root run in float64 and
+  round to float32 (`_fma32`), so the draw is the same on the CPU and on
+  the card and at every batch shape.
 """
 
 from __future__ import annotations
@@ -35,9 +37,9 @@ from repro_torch.kernels.threefry import ops as tops
 MASK32 = 0xFFFFFFFF
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 F32, F64 = torch.float32, torch.float64
-# The most ulp by which `normal` was seen to differ from jax.random.normal
-# (tests/test_torch_random.py holds it there).
-NORMAL_ULP = 3
+# The most ulp by which `normal` may differ from jax.random.normal
+# (tests/test_torch_random.py holds it there): none.
+NORMAL_ULP = 0
 
 Shape = Union[int, Sequence[int]]
 
@@ -126,6 +128,16 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """Float32 ``a * b + c`` as XLA's CPU backend computes a multiply-add it
+    contracts: ``a`` and ``b`` are float32 (tensors or numbers), so their
+    product is exact in float64, and the float64 sum is rounded to
+    float32.  That is the single rounding of the exact value except where
+    the float64 sum lands on a float32 tie that the exact sum is not on
+    (a chance of about 2**-29 a multiply-add); no held draw reaches one."""
+    return (a.to(F64) * b + c).to(F32)
+
+
 def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: (..., *shape) in
@@ -136,11 +148,7 @@ def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     lo, hi = _f32(minval), _f32(maxval)
     span = _f32(np.float32(hi) - np.float32(lo))
     u = _unit_floats(keys, shape)
-    # the product of two float32 values is exact in float64, so the sum
-    # rounds twice (float64, then float32) where XLA's multiply-add
-    # rounds once; the two differ only where the float64 sum lands on a
-    # float32 tie, which the held draws never reach
-    return torch.clamp_min((u.to(F64) * span + lo).to(F32), lo)
+    return torch.clamp_min(_fma32(u, span, lo), lo)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv
@@ -154,27 +162,80 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+# XLA's float32 log1p: a rational p(x)/q(x) for |x| < sqrt(2) - 1 (both
+# in Horner form from the highest power; q's leading coefficient is 1),
+# else XLA's log of 1 + x (Cephes' logf: a mantissa in [sqrt(1/2),
+# sqrt(2)) and a degree-9 polynomial in three interleaved chains).
+_LOG1P_SMALL = 0.4142135679721832
+_LOG1P_P = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551,
+            29.91191864013672, 60.949668884277344, 57.11296463012695,
+            20.039552688598633)
+_LOG1P_Q = (1.0, 15.062909126281738, 83.04756927490234, 221.7624053955078,
+            309.0987243652344, 216.42788696289062, 60.11865997314453)
+_LOG_CHAINS = ((0.07037683576345444, -0.11514610052108765,
+                0.11676998436450958),
+               (-0.12420140951871872, 0.14249323308467865,
+                -0.16668057441711426),
+               (0.2000071406364441, -0.24999994039535522,
+                0.3333333134651184))
+_LOG_SQRT_HALF = 0.7071067690849304
+_LOG_E_LO, _LOG_E_HI = -0.00021219444170128554, 0.693359375
+_MIN_NORMAL = 1.1754943508222875e-38
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log`` for finite ``y > 0`` (what `_log1p` feeds
+    it), its multiply-adds contracted as XLA's CPU backend contracts
+    them: the polynomial's tail as ``t * x^3 + e * c_lo``, the product
+    ``e * c_lo`` rounded first."""
+    b = torch.clamp_min(y, _MIN_NORMAL).view(torch.int32)
+    e = ((b >> 23) - 127).to(F32) + 1.0
+    m = ((b & 0x7FFFFF) | 0x3F000000).view(F32)      # mantissa in [0.5, 1)
+    low = m < _LOG_SQRT_HALF
+    x = (m - 1.0) + torch.where(low, m, 0.0)
+    e = e - torch.where(low, 1.0, 0.0)
+    z = x * x
+    z3 = z * x
+    a, bq, c = ((_fma32(_fma32(x, k0, k1), x, k2) for k0, k1, k2 in
+                 _LOG_CHAINS))
+    t = _fma32(_fma32(_fma32(a, z3, bq), z3, c), z3, e * _LOG_E_LO)
+    return _fma32(e, _LOG_E_HI, _fma32(-z, 0.5, x) + t)
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``log1p`` for ``-1 < x <= 0`` (what `_erf_inv` feeds
+    it).  The small branch is ``x + (-0.5 * x^2 + (x * x^2) * p/q)``, its
+    last multiply-add contracted on ``x^2``; the quotient is correctly
+    rounded, as the CPU's division is."""
+    x2 = x * x
+    p = torch.full_like(x, _f32(_LOG1P_P[0]))
+    q = torch.ones_like(x)
+    for cp, cq in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
+        p, q = _fma32(p, x, cp), _fma32(q, x, cq)
+    ratio = (p.to(F64) / q.to(F64)).to(F32)
+    small = x + _fma32(x2, -0.5, (x * x2) * ratio)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, _log_f32(x + 1.0))
+
+
 def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``ErfInv`` for ``|x| < 1`` (what `normal` feeds it:
-    the reference's ``|x| == 1`` branch is never reached).  ``log1p`` and
-    ``sqrt`` are taken in float64 and rounded to float32; each step of the
-    polynomial is a multiply-add rounded as `uniform`'s is."""
-    w = -torch.log1p((-(x * x)).to(F64)).to(F32)
+    the reference's ``|x| == 1`` branch is never reached).  ``sqrt`` is
+    taken in float64 and rounded to float32; each step of the polynomial
+    is a multiply-add as `_fma32` rounds it."""
+    w = -_log1p(-(x * x))
     lt = w < 5.0
-    w64 = torch.where(lt, w - 2.5,
-                      torch.sqrt(w.to(F64)).to(F32) - 3.0).to(F64)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.to(F64)).to(F32) - 3.0)
     p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        c = torch.where(lt, _f32(a), _f32(b))
-        p = torch.addcmul(c, p, w64).to(F32)
+        p = _fma32(p, w, torch.where(lt, _f32(a), _f32(b)))
     return p * x
 
 
 def normal(keys: torch.Tensor, shape: Shape = (),
            scale: float = 1.0) -> torch.Tensor:
     """``scale * jax.random.normal(key, shape)`` in float32: ``sqrt(2) *
-    erfinv(u)`` with ``u`` uniform in ``[nextafter(-1, 0), 1)``, within
-    `NORMAL_ULP` of jax's.  ``scale`` is folded into the constant first,
+    erfinv(u)`` with ``u`` uniform in ``[nextafter(-1, 0), 1)``, jax's
+    values bit for bit.  ``scale`` is folded into the constant first,
     ``(f32(scale) * f32(sqrt(2))) * erfinv(u)``, as XLA folds the two
     constant factors of ``scale * normal`` where it compiles them
     together (the reference's initial loads)."""

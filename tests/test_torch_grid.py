@@ -102,12 +102,17 @@ def test_sched_select_matches_reference(policy):
 
 
 def test_sched_select_checks():
+    """A window of more than 1,024 requests runs (the plain version has no
+    cap; on the card the stream kernel's shared-memory budget decides,
+    `kernel.check_stream_domain`), and a dynamic policy raises."""
     m = 8
-    obj = torch.zeros((2, tkernel.MAX_WINDOW + 1), dtype=torch.int32)
+    obj = torch.arange(2 * 1025, dtype=torch.int32).reshape(2, 1025) % m
     lens = torch.ones(obj.shape)
     loads, seeds = torch.zeros((2, m)), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(ValueError, match="MAX_WINDOW=1024"):
-        tops.sched_select(obj, lens, loads, seeds, n_servers=m)
+    choices, final = tops.sched_select(obj, lens, loads, seeds, n_servers=m)
+    assert choices.shape == (2, 1025) and final.shape == (2, m)
+    # minload with no threshold spreads unit lengths evenly
+    assert torch.equal(final.sum(-1), torch.full((2,), 1025.0))
     with pytest.raises(ValueError, match="kernel policy"):
         tops.sched_select(obj[:, :8], lens[:, :8], loads, seeds,
                           n_servers=m, policy="ect")

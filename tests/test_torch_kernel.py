@@ -91,24 +91,62 @@ def test_seed_bit_pattern():
         np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1], np.uint32))
 
 
-@pytest.mark.parametrize("window,m_pad,match", [
-    (1025, 128, "window_size=1025 .* CUDA stream kernel .* JAX reference "
-                "has none.*backend='jax'.* no cap"),
-    (8, 1152, "M_pad=1152 .* CUDA stream kernel .* JAX reference has none"
-              ".*backend='jax'.* no cap")])
-def test_stream_kernel_domain_is_stated(window, m_pad, match):
-    """The CUDA stream kernel's limits (README: window ≤ 1024, M_pad ≤
-    1024) raise before any build or launch, each naming its limit, that
-    the eager engine (backend='jax') schedules such inputs without it and
-    the reference has none; nothing falls back to the CPU."""
-    t, n_win, m = 2, 1, 20
-    n = n_win * window
-    zeros = lambda *s: torch.zeros(s)  # noqa: E731
-    with pytest.raises(ValueError, match=match):
-        tkernel.sched_stream_call(
-            torch.zeros((t, n), dtype=torch.int32), zeros(t, n),
-            torch.ones((t, n), dtype=torch.int32), zeros(t, 4, m_pad),
-            torch.zeros(t, dtype=torch.long), zeros(t, n_win, m_pad),
-            n_servers=m, window_size=window, threshold=2.0, lam=50.0,
-            alpha=0.25, window_dt=0.02, policy="ect", observe=True,
-            renorm=True)
+class _BudgetLibrary:
+    """Stands in for the built library's ``sched_stream_budget``: reports
+    ``words`` a stream and a ``budget`` of bytes, and records its calls."""
+
+    def __init__(self, words, budget):
+        self.words, self.budget, self.calls = words, budget, []
+
+    def sched_stream_budget(self, policy, m_pad, window, words, budget):
+        self.calls.append((policy, m_pad, window))
+        words._obj.value, budget._obj.value = self.words, self.budget
+        return 0
+
+
+# (window, M_pad, policy, words the library reports, None or the message)
+H100_OPTIN = 232448
+DOMAIN_CASES = [
+    (2048, 2048, "mlml", 36928, None),
+    (1024, 4096, "nltr", 46144, None),
+    (1024, 8192, "ect", 78912, "window_size=1024 with M_pad=8192 needs "
+     "315648 bytes .78912 words. .*under ect, past the 232448 bytes .*"
+     "JAX reference has no cap.*backend='jax'.* no cap"),
+    (4096, 128, "minload", 25664, None),
+]
+
+
+@pytest.mark.parametrize("window,m_pad,policy,words,match", DOMAIN_CASES)
+def test_stream_kernel_domain_is_stated(monkeypatch, window, m_pad, policy,
+                                        words, match):
+    """The CUDA stream kernel's one limit is a block's opt-in shared memory
+    (README): the check asks the library's ``sched_stream_budget`` for the
+    words a stream needs and the card's budget, and an input past it raises
+    naming both, that the eager engine (backend='jax') schedules it with no
+    cap and the reference has none.  The window and the server count have
+    no cap of their own; nothing falls back to the CPU."""
+    lib = _BudgetLibrary(words, H100_OPTIN)
+    monkeypatch.setattr(tkernel, "_library", lambda: lib)
+    assert tkernel.stream_budget(policy, m_pad, window) == (4 * words,
+                                                            H100_OPTIN)
+    if match is None:
+        tkernel.check_stream_domain(policy, m_pad, window)
+    else:
+        with pytest.raises(ValueError, match=match):
+            tkernel.check_stream_domain(policy, m_pad, window)
+    code = tkernel.POLICY_CODES[policy]
+    assert lib.calls == [(code, m_pad, window)] * 2
+
+
+def test_stream_kernel_limit_is_the_shared_memory_budget():
+    """No fixed cap is left: the wrappers hold no window or server limit,
+    and the CUDA source accepts a shape when one stream fits the device's
+    opt-in shared memory per block, read from the runtime."""
+    assert not hasattr(tkernel, "MAX_WINDOW")
+    assert not hasattr(tkernel, "MAX_M_PAD")
+    src = tkernel.SOURCE.read_text()
+    assert "cudaDevAttrMaxSharedMemoryPerBlockOptin" in src
+    assert "227 * 1024" not in src
+    launch = src[src.index('extern "C" int sched_stream_launch'):]
+    launch = launch[:launch.index("Params p;")]
+    assert "1024" not in launch

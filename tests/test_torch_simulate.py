@@ -237,21 +237,38 @@ def test_run_trials_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("fields,match", [
-    (dict(mesh_shape=(1,)), "Queue A10"),
-    (dict(mesh_shape=(2,)), "Queue A10"),
-    (dict(mesh_shape=(2, 2)), "Queue A10"),
-    (dict(tiles="tuned", trial_tile=4, mesh_shape=(4,)), "Queue A10"),
+    (dict(mesh_shape=(1, 2)), "shards a client axis but client_model="),
+    (dict(mesh_shape=(0,)), "positive rank counts"),
+    (dict(mesh_shape=(1, 2, 3)), "positive rank counts"),
+    (dict(mesh_shape="2x2"), "tuple of 1 or 2 positive rank counts"),
+    (dict(mesh_shape=[2, 2], client_model="per_client"), None),
+    (dict(tiles="tuned", trial_tile=4, mesh_shape=(4,)), None),
 ])
-def test_unported_knobs_raise_naming_roadmap(fields, match):
-    """The knob still unported (the sharded sweep's mesh) raises naming
-    its ROADMAP item; the tile knobs (trial_tile, tiles) are ported and do
-    not (tests/test_torch_tune.py), so a tuned run raises for its mesh
-    alone.  ``prep="sequential"`` is ported (tests/test_torch_trials.py)."""
-    with pytest.raises(NotImplementedError, match=match):
-        tsim.SimConfig(**fields)
-    tile_fields = {k: v for k, v in fields.items()
-                   if k in ("tiles", "trial_tile")}
-    tsim.SimConfig(**tile_fields)
+def test_mesh_shape_validation(fields, match):
+    """`SimConfig.mesh_shape` is validated as the reference validates it
+    (repro.core.simulate.SimConfig): a client axis on the shared log, a
+    rank count below 1 or a third axis raise; a list normalizes to a
+    tuple, and the tile knobs combine with a mesh."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            tsim.SimConfig(**fields)
+        return
+    cfg = tsim.SimConfig(**fields)
+    assert cfg.mesh_shape == tuple(fields["mesh_shape"])
+    assert dataclasses.replace(cfg).mesh_shape == cfg.mesh_shape
+
+
+@pytest.mark.parametrize("mesh_shape", [(2,), (1, 4)])
+def test_mesh_larger_than_world_raises_naming_world_size(mesh_shape):
+    """Without a process group the world is one rank: a larger mesh raises
+    naming the world size, before any group starts."""
+    cfg = tsim.SimConfig(n_servers=8, n_requests=16, n_trials=2,
+                         window_size=8, client_model="per_client",
+                         n_clients=4, mesh_shape=mesh_shape)
+    with pytest.raises(ValueError, match="does not divide the world size 1"):
+        tsim.run_trials(0, cfg, PolicyConfig(name="rr"),
+                        tsim.default_log_cfg(cfg), device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_paper_field_errors():
