@@ -6,7 +6,8 @@
 From the root of a checkout, with one CUDA card visible.  With
 ``--walls DIR`` it only times the main paths' `run_trials` walls of this
 tree and of the checkout at DIR, alternately (`compare_walls`);
-``--host-path`` runs the host path's phase alone; ``--sweep-rank RANK
+``--host-path`` runs the host path's phase alone and ``--train-path``
+the training phase alone; ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
 
@@ -124,6 +125,23 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    the phase, naming what it needs); (e) `ObjectStoreTokens` at
    gemma-2b's vocabulary and the serve shape onto the card, each batch
    equal to `SyntheticTokens`'; `--host-path` runs this phase alone;
+   then the training path (`repro_torch.train`, `launch/train`), with
+   the port's kernel counts zeroed before and read after (training
+   launches none of them): (a) gemma-2b at full width and depth (f32
+   weights, bf16 compute, remat "block"), 6 steps on one repeated batch
+   4 x 512, the loss finite and falling: step time (median of steps 2-6),
+   tokens/s, the share of the bf16 dense peak, peak memory, kernels a
+   step and the device's busy share (torch.profiler), the optimizer's
+   share; (b) the reduced gemma-2b in f32, 3 steps on the card against
+   the CPU, to the CPU tests' tolerances; (c) gemma-2b at full width cut
+   to 2 layers (p, m and v 8.9 GB): 4 steps, a save through
+   `Checkpointer` with a straggler and a failed server, 4 more; a fresh
+   state restored onto the card takes the same 4, held to the
+   uninterrupted run within rtol 1e-5 / atol 1e-6 (free disk and RAM
+   checked first; save and restore GB/s); then
+   ``python -m repro_torch.launch.train`` on the reduced gemma-2b in a
+   subprocess, 20 steps with checkpoints every 10 under a straggler, and
+   resumed to 30; `--train-path` runs this phase alone;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -187,6 +205,8 @@ from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
 from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.train import optimizer as topt  # noqa: E402
+from repro_torch.train import steps as tsteps  # noqa: E402
 from repro_torch.tune import __main__ as tune_cli  # noqa: E402
 from repro_torch.tune import profile as tune_profile  # noqa: E402
 from torch_parity import MERGE_CASES, merge_case, table_variant  # noqa: E402
@@ -2081,6 +2101,22 @@ def host_ram_bytes():
     return info["MemAvailable"], info["MemTotal"]
 
 
+def check_room(label, nbytes, root) -> None:
+    """Print the free disk at ``root`` and the host RAM; fail unless a
+    checkpoint of ``nbytes`` fits (1.1x on disk, 3x in RAM: the host
+    snapshot, the restore's buffers and their copies)."""
+    free = shutil.disk_usage(root).free
+    ram_avail, ram_total = host_ram_bytes()
+    print(f"{label}, {nbytes / 1e9:.3f} GB; free disk {free / 1e9:.1f} GB "
+          f"at {root}, host RAM {ram_avail / 1e9:.1f} GB available of "
+          f"{ram_total / 1e9:.1f} GB")
+    if free < 1.1 * nbytes or ram_avail < 3 * nbytes:
+        fail(f"{label}: a checkpoint of {nbytes / 1e9:.1f} GB needs "
+             f"{1.1 * nbytes / 1e9:.1f} GB of disk and {3 * nbytes / 1e9:.1f}"
+             f" GB of host RAM; have {free / 1e9:.1f} GB and "
+             f"{ram_avail / 1e9:.1f} GB")
+
+
 def run_checkpoint(serve_args, card):
     """(d): gemma-2b's served parameters saved from the card through
     `Checkpointer` onto a `LocalFSStore` (a straggler, a failed server),
@@ -2093,16 +2129,8 @@ def run_checkpoint(serve_args, card):
     n_params = sum(t.numel() for t in want.values())
     root = tempfile.mkdtemp(prefix="ckpt_")
     try:
-        free = shutil.disk_usage(root).free
-        ram_avail, ram_total = host_ram_bytes()
-        print(f"host path (d): gemma-2b state_dict {len(want)} tensors, "
-              f"{n_params} parameters, {nbytes / 1e9:.3f} GB; free disk "
-              f"{free / 1e9:.1f} GB at {root}, host RAM {ram_avail / 1e9:.1f}"
-              f" GB available of {ram_total / 1e9:.1f} GB")
-        if free < 1.1 * nbytes or ram_avail < 3 * nbytes:
-            fail(f"checkpoint of gemma-2b needs {1.1 * nbytes / 1e9:.1f} GB "
-                 f"of disk and {3 * nbytes / 1e9:.1f} GB of host RAM; have "
-                 f"{free / 1e9:.1f} GB and {ram_avail / 1e9:.1f} GB")
+        check_room(f"host path (d): gemma-2b state_dict {len(want)} "
+                   f"tensors, {n_params} parameters", nbytes, root)
         ck = tckpt.Checkpointer(root)
         ck.store.set_write_delay(CKPT_STRAGGLER, CKPT_DELAY_S_PER_MB)
         ck.store.fail_server(CKPT_FAILED)
@@ -2221,6 +2249,286 @@ def run_host_path(serve_args, card) -> int:
     return launches
 
 
+# -- the training path (launch/train, train/steps, optimizer) ------------------
+
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_OPT = topt.OptConfig(peak_lr=3e-4, warmup_steps=2, total_steps=100)
+TRAIN_PARITY_STEPS, TRAIN_LOSS_RTOL = 3, 1e-5   # tests/test_torch_train.py
+RESUME_LAYERS, RESUME_STEPS = 2, 4
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+TRAIN_CLI = ["--arch", "gemma-2b", "--reduced", "--ckpt-every", "10",
+             "--inject-straggler", "2"]
+TRAIN_CLI_TIMEOUT_S = 300
+
+
+def train_batch(cfg, step=0, device="cuda"):
+    return tdata.SyntheticTokens(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH)).batch_at(step, device)
+
+
+def synced_s(fn):
+    """(fn's result, its host seconds between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_flops(cfg, tokens, recompute=False) -> float:
+    """6·N·tokens plus attention's S² products (the port scores every
+    query against every key, masked: 4·B·S²·H·hd a layer forward), both
+    three times over for the backward pass; with ``recompute``, also the
+    layers' forward again (remat="block")."""
+    n = cfg.param_count()
+    attn = 4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.hd \
+        * cfg.n_layers
+    flops = 6 * n * tokens + 3 * attn
+    if recompute:
+        blocks = n - cfg.padded_vocab * cfg.d_model - cfg.d_model
+        flops += 2 * blocks * tokens + attn
+    return flops
+
+
+def run_train_full(card) -> dict:
+    """(a): gemma-2b at full width and depth (f32 weights, bf16 compute,
+    remat="block"), 6 steps on one repeated batch: step time (median of
+    steps 2-6, each between two synchronizes), tokens/s, the share of the
+    bf16 dense peak, peak memory, kernels a step (torch.profiler) and the
+    optimizer's share of a step (`optimizer.update` alone, CUDA events,
+    median of 3 on one set of gradients)."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = synced_s(lambda: tsteps.init_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg))
+    batch = train_batch(cfg)
+    step = tsteps.make_train_step(cfg, TRAIN_OPT)
+    losses, gnorms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        (state, m), sec = synced_s(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        secs.append(sec)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + gnorms)) or losses[-1] >= losses[0]:
+        fail(f"gemma-2b training: losses {losses}, grad norms {gnorms}: "
+             "not finite, or not lower at the last step")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = float(np.median(secs[1:]))
+    mfu = train_flops(cfg, tokens) / step_s / BF16_TENSOR_FLOPS
+    hfu = train_flops(cfg, tokens, recompute=True) / step_s \
+        / BF16_TENSOR_FLOPS
+    state_gb = sum(t.numel() * t.element_size()
+                   for _, t in tckpt.flatten_with_paths(state)) / 1e9
+    print(f"train (a) gemma-2b on {card}: {cfg.param_count()} parameters, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}, "
+          f"{cfg.compute_dtype} compute; train state {state_gb:.4f} GB; "
+          f"init {init_s:.3f} s")
+    print(f"  losses {losses}")
+    print(f"  grad norms {gnorms}")
+    print(f"  step s {secs} (median of steps 2-{TRAIN_STEPS} {step_s:.6f} "
+          f"s, {tokens / step_s:.1f} tokens/s); bf16 peak share "
+          f"{mfu:.4f} of {BF16_TENSOR_FLOPS:.3g} FLOP/s by 6*N*tokens + "
+          f"attention ({train_flops(cfg, tokens):.6g} FLOP), {hfu:.4f} "
+          f"with the remat forward ({train_flops(cfg, tokens, True):.6g})")
+    print(f"  peak memory allocated {peak} bytes ({peak / 1e9:.3f} GB)")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        (state, _), prof_s = synced_s(lambda: step(state, batch))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in events)
+    busy_ms = sum(device_ms(e) for e in events)
+    print(f"  profiler, one step: {n_kernels} kernels, device busy "
+          f"{busy_ms:.3f} ms of {prof_s * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (prof_s * 1e3):.4f}; {busy_ms / (step_s * 1e3):.4f} "
+          f"of the median unprofiled step)")
+    for e in sorted(events, key=device_ms, reverse=True)[:6]:
+        print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+
+    names, leaves = zip(*state.params.named_parameters())
+    loss, _ = T.lm_loss(state.params, batch, cfg)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    del loss
+    opt_ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        _, opt, _ = topt.update(TRAIN_OPT, grads, state.opt, state.params)
+        end.record()
+        torch.cuda.synchronize()
+        state = state._replace(opt=opt)
+        opt_ms.append(start.elapsed_time(end))
+    opt_med = float(np.median(opt_ms))
+    print(f"  optimizer.update alone {opt_ms} ms (median {opt_med:.4f} ms, "
+          f"{opt_med / (step_s * 1e3):.4f} of the median step)")
+    del state, grads, batch
+    torch.cuda.empty_cache()
+    return dict(step_s=step_s, tokens_per_s=tokens / step_s, mfu=mfu,
+                peak_bytes=peak, kernels=n_kernels, opt_ms=opt_med)
+
+
+def fresh_on(cfg, dev, seed=0):
+    """A train state drawn on the CPU from ``seed``, moved to ``dev``."""
+    state = tsteps.init_state(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+    params = state.params.to(dev)
+    return tsteps.TrainState(params=params, opt=topt.init(params),
+                             step=state.step.to(dev))
+
+
+def run_train_parity(card):
+    """(b): the reduced gemma-2b in float32 compute, 3 train steps on the
+    card against the same steps on the CPU, held to the CPU tests'
+    tolerances (loss and grad norm 1e-5 relative, parameters 2·sum(lr))."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                              compute_dtype="float32")
+    step = tsteps.make_train_step(cfg, TRAIN_OPT)
+    card_state, cpu_state = fresh_on(cfg, "cuda"), fresh_on(cfg, "cpu")
+    worst, lr_sum = 0.0, 0.0
+    for i in range(TRAIN_PARITY_STEPS):
+        card_state, mc = step(card_state, train_batch(cfg, i))
+        cpu_state, mh = step(cpu_state, train_batch(cfg, i, "cpu"))
+        for k in ("loss", "grad_norm"):
+            a, b = float(mc[k]), float(mh[k])
+            worst = max(worst, abs(a - b) / abs(b))
+        lr_sum += float(mh["lr"])
+    got, want = card_state.params.state_dict(), cpu_state.params.state_dict()
+    p_err = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
+    ok = worst <= TRAIN_LOSS_RTOL and p_err <= 2 * lr_sum
+    print(f"train (b) reduced gemma-2b, f32, {TRAIN_PARITY_STEPS} steps on "
+          f"{card} against the CPU: loss / grad norm max rel diff "
+          f"{worst:.3g} (tolerance {TRAIN_LOSS_RTOL:g}), parameters max abs "
+          f"diff {p_err:.3g} (tolerance 2*sum(lr) = {2 * lr_sum:.3g}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the reduced train steps on the card disagree with the CPU")
+
+
+def state_diff(a, b):
+    """(largest |a - b| over params, m and v; all bit-equal; all within
+    RESUME_RTOL / RESUME_ATOL)."""
+    worst, equal, close = 0.0, True, True
+    for x, y in ((a.params.state_dict(), b.params.state_dict()),
+                 (a.opt.m, b.opt.m), (a.opt.v, b.opt.v)):
+        for k in x:
+            worst = max(worst, (x[k] - y[k]).abs().max().item())
+            equal = equal and torch.equal(x[k], y[k])
+            close = close and torch.allclose(x[k], y[k], rtol=RESUME_RTOL,
+                                             atol=RESUME_ATOL)
+    return worst, equal, close
+
+
+def run_train_resume(card):
+    """(c): gemma-2b at full width cut to 2 layers (its p, m and v 8.9 GB)
+    trains 4 steps, saves through `Checkpointer` with a straggler and a
+    failed server, trains 4 more; a fresh state restored from the
+    checkpoint onto the card trains the same 4, held to the uninterrupted
+    8 within rtol 1e-5 / atol 1e-6 (CUDA's embedding backward may
+    accumulate in another order)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=RESUME_LAYERS)
+    step = tsteps.make_train_step(cfg, TRAIN_OPT)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(1)
+    state = tsteps.init_state(gen(), cfg)
+    nbytes = sum(t.numel() * t.element_size()
+                 for _, t in tckpt.flatten_with_paths(state))
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        check_room(f"train (c) gemma-2b cut to {RESUME_LAYERS} layers, "
+                   f"{cfg.param_count()} parameters, p + m + v", nbytes,
+                   root)
+        for i in range(RESUME_STEPS):
+            state, _ = step(state, train_batch(cfg, i))
+        ck = tckpt.Checkpointer(root)
+        ck.store.set_write_delay(CKPT_STRAGGLER, CKPT_DELAY_S_PER_MB)
+        ck.store.fail_server(CKPT_FAILED)
+        _, save_s = synced_s(lambda: ck.save(RESUME_STEPS, state))
+        st = ck.client.stats()
+        for i in range(RESUME_STEPS, 2 * RESUME_STEPS):
+            state, m = step(state, train_batch(cfg, i))
+        template = tsteps.init_state(gen(), cfg)
+        back, restore_s = synced_s(lambda: tsteps.load_state(
+            template, ck.restore(target=template)))
+        del template
+        if int(back.step) != RESUME_STEPS or back.opt.m[
+                "embed.table"].device.type != "cuda":
+            fail(f"train (c): restored step {int(back.step)} is not "
+                 f"{RESUME_STEPS}, or its leaves are not on the card")
+        for i in range(RESUME_STEPS, 2 * RESUME_STEPS):
+            back, mb = step(back, train_batch(cfg, i))
+        ck.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    worst, equal, close = state_diff(back, state)
+    print(f"  save at step {RESUME_STEPS}: {save_s:.3f} s "
+          f"({nbytes / save_s / 1e9:.4f} GB/s), {int(st['writes'])} objects"
+          f", failed writes {int(st['failed_writes'])}, redirect rate "
+          f"{st['redirect_rate']:.4f}; restore onto the card {restore_s:.3f}"
+          f" s ({nbytes / restore_s / 1e9:.4f} GB/s)")
+    print(f"  resumed {RESUME_STEPS} + {RESUME_STEPS} steps against "
+          f"{2 * RESUME_STEPS} uninterrupted: loss {float(mb['loss'])!r} / "
+          f"{float(m['loss'])!r}, params/m/v max abs diff {worst:.3g}, "
+          f"bit-equal {equal}, within rtol {RESUME_RTOL:g} / atol "
+          f"{RESUME_ATOL:g} {close}")
+    if not close or st["failed_writes"] < 1:
+        fail("train (c): the resumed state differs from the uninterrupted "
+             "run, or the failed server was never tried")
+    del state, back
+    torch.cuda.empty_cache()
+
+
+def run_train_cli(card):
+    """`python -m repro_torch.launch.train` on the card in a subprocess:
+    the reduced gemma-2b, 20 steps with checkpoints every 10 under a
+    straggler, then the same job resumed to 30 steps."""
+    root = tempfile.mkdtemp(prefix="train_cli_")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    try:
+        for steps, expect in ((20, "[train] step    20"),
+                              (30, "[train] resumed from step 20")):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   *TRAIN_CLI, "--steps", str(steps), "--ckpt-dir", root]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, env=env, capture_output=True,
+                                 text=True, timeout=TRAIN_CLI_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if out.returncode or expect not in out.stdout:
+                fail(f"{' '.join(cmd[1:])} exited {out.returncode} without "
+                     f"{expect!r}:\n{out.stdout[-2000:]}\n"
+                     f"{out.stderr[-2000:]}")
+            lines = [x for x in out.stdout.splitlines()
+                     if x.startswith("[train]")]
+            print(f"train CLI on {card} ({wall:.1f} s): "
+                  f"{' '.join(cmd[3:-2])}")
+            for line in lines:
+                print(f"  {line}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_train_path(card) -> None:
+    """The training phase, (a)-(c) and the CLI, with the port's kernel
+    counts zeroed before and read after: training launches none of them
+    (the JAX package trains with XLA attention, not its Pallas kernel)."""
+    t0 = time.perf_counter()
+    zero_counts()
+    run_train_full(card)
+    run_train_parity(card)
+    run_train_resume(card)
+    counts = all_counts()
+    if any(counts.values()):
+        fail(f"the training path launched {counts}")
+    print(f"training path: launches {counts}")
+    run_train_cli(card)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+
+
 # -- flash attention and the serving path --------------------------------------
 
 
@@ -2324,10 +2632,11 @@ def check_serve_logits(args, tokens):
     for compute in ("float32", "bfloat16"):
         run_cfg = dataclasses.replace(cfg, compute_dtype=compute,
                                       use_pallas_attn=True)
-        kern = T.forward_train(params, batch, run_cfg)
-        with mock.patch.object(fops, "flash_attention",
-                               fops.flash_attention_plain):
-            ref = T.forward_train(params, batch, run_cfg)
+        with torch.no_grad():   # the flash route is forward only
+            kern = T.forward_train(params, batch, run_cfg)
+            with mock.patch.object(fops, "flash_attention",
+                                   fops.flash_attention_plain):
+                ref = T.forward_train(params, batch, run_cfg)
         torch.cuda.synchronize()
         for x in (kern, ref):
             if x.shape != (*prompts.shape, cfg.padded_vocab) or not bool(
@@ -2376,8 +2685,9 @@ def profile_serve(args, prefill_s, card):
     b, s = prompts.shape
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    T.forward_train(params, {"tokens": prompts},
-                    dataclasses.replace(cfg, use_pallas_attn=True))
+    with torch.no_grad():
+        T.forward_train(params, {"tokens": prompts},
+                        dataclasses.replace(cfg, use_pallas_attn=True))
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     caches = T.init_caches(cfg, b, s + args.gen, prompts.device)
@@ -2684,6 +2994,7 @@ def main() -> None:
 
     # -- the host path: the client-side I/O path, checkpoints, tokens ------
     host_launches = run_host_path(serve_args, card)
+    run_train_path(card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -2731,13 +3042,17 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def main_host_path() -> None:
-    """`python3 chip_smoke.py --host-path`: the host path's phases alone."""
+def main_phase(flag: str) -> None:
+    """`python3 chip_smoke.py --host-path` or `--train-path`: that
+    phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
     print(card)
-    run_host_path(serve.parse_args(SERVE_ARGS), card)
+    if flag == "--host-path":
+        run_host_path(serve.parse_args(SERVE_ARGS), card)
+    else:
+        run_train_path(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2748,7 +3063,7 @@ if __name__ == "__main__":
         compare_walls(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    elif sys.argv[1:] == ["--host-path"]:
-        main_host_path()
+    elif sys.argv[1:] in (["--host-path"], ["--train-path"]):
+        main_phase(sys.argv[1])
     else:
         main()

@@ -1,8 +1,9 @@
 """Carry the JAX package's inputs across as plain numpy arrays.
 
 Two kinds: a simulation's prepared inputs (`from_prep`), and a language
-model's configuration and parameters (`model_config_from_fields`,
-`lm_params_from_numpy`).
+model's configuration, parameters and train state
+(`model_config_from_fields`, `lm_params_from_numpy`,
+`lm_state_dict_from_numpy`, `train_state_from_numpy`).
 
 The port draws the same trials as the JAX package from the same seed
 (`repro_torch.random` is its threefry, key for key), except that the
@@ -30,6 +31,8 @@ from repro_torch.core.statlog import SchedState
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import MoEConfig, ModelConfig, SSMConfig
+from repro_torch.train import optimizer as O
+from repro_torch.train import steps as S
 
 
 class PrepInputs(NamedTuple):
@@ -124,3 +127,28 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     head = tensors(tree["head"]) if "head" in tree else None
     return T.LM(tensors(tree["embed"]), tensors(tree["final_norm"]), head,
                 blocks)
+
+
+def lm_state_dict_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                             device="cuda") -> Dict[str, torch.Tensor]:
+    """A pytree shaped as ``init_lm``'s (the parameters, their gradients
+    or an Adam moment of them), as numpy arrays, keyed by the port's
+    `LM` ``state_dict`` names."""
+    return dict(lm_params_from_numpy(tree, cfg, device).state_dict())
+
+
+def train_state_from_numpy(state, cfg: ModelConfig,
+                           device="cuda") -> S.TrainState:
+    """The JAX package's ``TrainState`` (``params``, ``opt.m``,
+    ``opt.v``, ``opt.count``, ``step``), its leaves as numpy arrays, as
+    the port's `train.TrainState`: the moments keyed by ``state_dict``
+    names, the counters int32."""
+    dev = resolve_device(device)
+    m, v = (lm_state_dict_from_numpy(t, cfg, dev)
+            for t in (state.opt.m, state.opt.v))
+    counter = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                     device=dev)
+    return S.TrainState(params=lm_params_from_numpy(state.params, cfg, dev),
+                        opt=O.OptState(m=m, v=v,
+                                       count=counter(state.opt.count)),
+                        step=counter(state.step))

@@ -34,6 +34,7 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+@torch.no_grad()
 def generate(params: T.LM, prompts: torch.Tensor, cfg: ModelConfig,
              gen: int):
     """Greedy generation of ``gen`` tokens after ``prompts`` (B, S).

@@ -6,7 +6,8 @@ The port's counterpart of the JAX package's ``models/attention.py``.
   of ``q_block`` (a Python loop), so the (S x S) score matrix is never
   materialized whole.  With ``cfg.use_pallas_attn`` set, `self_attend`
   routes through `kernels.flash_attention.ops.flash_attention` instead:
-  the hand-written CUDA flash kernel on the card.
+  the hand-written CUDA flash kernel on the card.  That route has no
+  backward, so `self_attend` refuses it under autograd on every device.
 * Locality masks: causal, sliding-window (danube/mixtral), chunked-local
   (llama4), or none.  ``is_global`` is a Python bool per layer.
 * Decode uses a ring KV cache sized to the layer's receptive field
@@ -247,6 +248,14 @@ def self_attend(p: Params, x: torch.Tensor, positions: torch.Tensor,
     q = maybe_rope(q, positions, cfg, use_rope)
     k = maybe_rope(k, positions, cfg, use_rope)
     if cfg.use_pallas_attn:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "use_pallas_attn=True under autograd: the CUDA flash "
+                "kernels compute the forward only, and so does the JAX "
+                "package's Pallas kernel (jax.grad cannot differentiate "
+                "it); train with use_pallas_attn=False, or run the forward "
+                "under torch.no_grad()")
         o = fops.flash_attention(q, k, v, causal=True,
                                  window=cfg.sliding_window,
                                  chunk=cfg.chunk_attn, is_global=is_global)

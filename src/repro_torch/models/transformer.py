@@ -5,13 +5,17 @@ The parameters are an `LM` module: the embedding, the final norm, an
 optional untied head and one `Block` per layer in layer order (the JAX
 package stacks layer groups on a leading axis and scans them; the port
 loops over the layers in Python).  Each block's parameters sit in
-``nn.ParameterDict``s named as the JAX pytree's leaves.  Nothing here
-trains: parameters carry no gradient, and the entry points run under
-``torch.no_grad()``.
+``nn.ParameterDict``s named as the JAX pytree's leaves.  Parameters
+require gradients: `forward_train` and `lm_loss` run under whatever grad
+mode the caller sets, as the JAX functions do under ``jax.grad``, with
+``cfg.remat`` applied per layer (`_maybe_remat`).  The serving entry
+points run under ``torch.no_grad()``, so serving allocates nothing for
+autograd.
 
-Three entry points:
+Four entry points:
 
 * ``forward_train(params, batch, cfg)``   -> logits (B, S, Vp)
+* ``lm_loss(params, batch, cfg)``         -> loss, metrics
 * ``forward_prefill(params, batch, cfg)`` -> logits, decode caches
 * ``decode_step(params, caches, tokens, pos, cfg)`` -> logits, caches
 
@@ -22,10 +26,12 @@ with one ring cache per layer, updated in place.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
@@ -51,8 +57,7 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _param_dict(tensors: Params) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                             for k, t in tensors.items()})
+    return nn.ParameterDict({k: nn.Parameter(t) for k, t in tensors.items()})
 
 
 class Block(nn.Module):
@@ -100,14 +105,20 @@ def group_flags(cfg: ModelConfig) -> torch.Tensor:
     return flags
 
 
-@torch.no_grad()
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> LM:
     """Random parameters from ``gen`` (a generator on ``device``): the
     embedding, the head when untied, then each layer in order.  The
     numbers differ from the JAX package's threefry draws; carry its
     parameters across with `interop.lm_params_from_numpy` to compare."""
+    return build_lm(gen, cfg, resolve_device(device))
+
+
+@torch.no_grad()
+def build_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
+             dev: torch.device) -> LM:
+    """`init_lm` on a resolved device; on the ``meta`` device (``gen``
+    None) it gives shapes and dtypes and allocates nothing."""
     _check_supported(cfg)
-    dev = resolve_device(device)
     embed = L.init_embedding(gen, cfg.padded_vocab, cfg.d_model, cfg.pdtype,
                              dev)
     head = None
@@ -141,23 +152,56 @@ def _block_train(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
     return _apply_mlp_or_moe(p, x, cfg)
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    """Save the products with no batch dimension, as JAX's
+    ``dots_with_no_batch_dims_saveable`` does: the weight products, which
+    a (B, S, d) @ (d, f) product reaches as ``mm`` (attention's einsums
+    reach ``bmm``)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``cfg.remat`` over one layer (the JAX package's ``_maybe_remat``
+    over a scanned group; a dense group is one layer): ``"block"`` keeps
+    only the layer's input and recomputes the rest in the backward pass,
+    ``"dots"`` also keeps the weight products, ``"none"`` keeps all.
+    Without grad mode the layer runs as is."""
+    if cfg.remat == "none":
+        return fn
+    context_fn = ckpt.noop_context_fn      # "block"
+    if cfg.remat == "dots":
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=context_fn)
+
+    return run
+
+
 def backbone(params: LM, x: torch.Tensor, cfg: ModelConfig,
              positions: torch.Tensor) -> torch.Tensor:
     """Run every layer over embedded activations x: (B, S, d)."""
     flags = group_flags(cfg).tolist()
+    layer = _maybe_remat(_block_train, cfg)
     for li, block in enumerate(params.blocks):
         g, pos = divmod(li, cfg.group_size)
-        x = _block_train(block, x, cfg.block_kind(pos), cfg, positions,
-                         flags[g][pos])
+        x = layer(block, x, cfg.block_kind(pos), cfg, positions,
+                  flags[g][pos])
     return x
 
 
-@torch.no_grad()
 def forward_train(params: LM, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> torch.Tensor:
     """Logits (B, S, padded_vocab) of the teacher-forced forward over
-    ``batch["tokens"]`` (B, S).  (The JAX function also returns the MoE
-    auxiliary losses; the port has no MoE yet.)"""
+    ``batch["tokens"]`` (B, S), under the caller's grad mode.  (The JAX
+    function also returns the MoE auxiliary losses; the port has no MoE
+    yet.)"""
     tokens = batch["tokens"]
     if "patch_embeds" in batch:
         raise _unported("the VLM patch-embedding frontend")
@@ -168,6 +212,34 @@ def forward_train(params: LM, batch: Dict[str, torch.Tensor],
     x = L.apply_norm(cfg.norm, params.final_norm, x)
     return L.unembed(params.head, params.embed, x, cfg.cdtype,
                      softcap=cfg.logit_softcap)
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+
+def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over ``batch["targets"]`` (B, S), weighted by
+    ``batch["loss_mask"]`` where given: the float32 logits'
+    ``logsumexp`` over the padded vocabulary (padded columns count, as in
+    the JAX package) less the gold logit.  The gold logit is a gather,
+    bit-equal to the JAX package's iota-mask sum of one non-zero term.
+    Returns ``(total, {"nll", "lb_loss", "z_loss", "moe_dropped"})``; the
+    MoE terms are 0 while the port has no MoE, so ``total`` is the NLL."""
+    logits = forward_train(params, batch, cfg)
+    targets = batch["targets"]
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, targets.long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    nll = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+    zero = torch.zeros((), device=nll.device)
+    return nll, {"nll": nll, "lb_loss": zero, "z_loss": zero,
+                 "moe_dropped": zero}
 
 
 # ===========================================================================

@@ -6,7 +6,10 @@ metrics and the merged outputs (cm_wloads, cm_metrics, cm_lats, cm_lval);
 probs to 1e-6 and ewma/est to 1e-6 relative (the contract the CPU tests
 hold against the JAX package).  Flash attention: 2e-5 in float32 and
 2e-2 in bfloat16, the JAX package's own tolerances; the reduced serving
-path on the card against the same parameters on the CPU.  Without a card
+path on the card against the same parameters on the CPU.  Training: the
+reduced train steps on the card against the CPU to
+tests/test_torch_train.py's tolerances, the flash route's refusal under
+autograd, and a resume on the card from a checkpoint.  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
 it runs where JAX is not installed:
 
@@ -615,7 +618,9 @@ def test_reduced_serve_on_card_matches_cpu(arch, cuda_device):
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, (2, 40)))
     flash_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
-    want_logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
+    with torch.no_grad():   # the flash route is a forward-only route
+        want_logits = T.forward_train(params, {"tokens": prompts},
+                                      flash_cfg)
     want_tokens, _, _ = tserve.generate(params, prompts, cfg, 6)
     params.to(cuda_device)
     prompts = prompts.to(cuda_device)
@@ -625,7 +630,8 @@ def test_reduced_serve_on_card_matches_cpu(arch, cuda_device):
     assert fkernel.LAUNCHES == dict(
         before, flash_attention_simt=before["flash_attention_simt"]
         + cfg.n_layers)
-    logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
+    with torch.no_grad():
+        logits = T.forward_train(params, {"tokens": prompts}, flash_cfg)
     assert (logits.cpu() - want_logits).abs().max().item() < 1e-4
     assert torch.equal(tokens.cpu(), want_tokens)
 
@@ -645,13 +651,15 @@ def test_reduced_bf16_prefill_on_card_takes_wgmma(arch, cuda_device,
     prompts = torch.from_numpy(np.random.default_rng(1).integers(
         1, cfg.vocab_size, (2, 200))).to(cuda_device)
     before = dict(fkernel.LAUNCHES)
-    got = T.forward_train(params, {"tokens": prompts}, cfg).float()
+    with torch.no_grad():   # the flash route is a forward-only route
+        got = T.forward_train(params, {"tokens": prompts}, cfg).float()
     torch.cuda.synchronize()
     assert fkernel.LAUNCHES == dict(
         before, flash_attention_wgmma=before["flash_attention_wgmma"]
         + cfg.n_layers)
     monkeypatch.setattr(fops, "flash_attention", flash_attention_plain)
-    want = T.forward_train(params, {"tokens": prompts}, cfg).float()
+    with torch.no_grad():
+        want = T.forward_train(params, {"tokens": prompts}, cfg).float()
     assert (got - want).abs().max().item() <= 0.02 * want.abs().max().item()
 
 
@@ -892,3 +900,113 @@ def test_sim_cluster_replays_card_trace_as_cpu(cuda_device):
                     [r.server for r in cli.records], cli.log.table))
     assert out[0][:3] == out[1][:3]
     assert torch.equal(out[0][3], out[1][3])
+
+
+# -- training (launch/train, train/steps, optimizer) -------------------------
+
+
+def _fresh_train_state(cfg, device, seed=0):
+    """A train state drawn on the CPU from ``seed``, moved to ``device``
+    (zero moments, step 0)."""
+    from repro_torch.train import TrainState, init_state, optimizer
+    state = init_state(torch.Generator().manual_seed(seed), cfg,
+                       device="cpu")
+    params = state.params.to(device)
+    return TrainState(params=params, opt=optimizer.init(params),
+                      step=state.step.to(device))
+
+
+def _train_batch(cfg, step, device):
+    from repro_torch.data import DataConfig, SyntheticTokens
+    return SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=24,
+                                      global_batch=2, seed=1)
+                           ).batch_at(step, device=device)
+
+
+def test_train_steps_on_card_match_cpu(cuda_device):
+    """The reduced gemma-2b in float32 compute, 3 train steps on the card
+    against the same steps on the CPU: the loss and the grad norm to 1e-5
+    relative, the parameters to 2·sum(lr) (tests/test_torch_train.py's
+    tolerances against the JAX package), and no kernel of the port
+    launched."""
+    from repro_torch.train import OptConfig, make_train_step
+    cfg = dataclasses.replace(get_config("gemma-2b", reduced=True),
+                              compute_dtype="float32")
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    states = {d: _fresh_train_state(cfg, d) for d in ("cuda", "cpu")}
+    before = {**tkernel.LAUNCHES, **fkernel.LAUNCHES}
+    lr_sum = 0.0
+    for i in range(3):
+        metrics = {}
+        for d in states:
+            states[d], metrics[d] = step(states[d], _train_batch(cfg, i, d))
+        for k in ("loss", "grad_norm"):
+            got, want = float(metrics["cuda"][k]), float(metrics["cpu"][k])
+            assert abs(got - want) <= 1e-5 * abs(want), (i, k)
+        lr_sum += float(metrics["cpu"]["lr"])
+    assert {**tkernel.LAUNCHES, **fkernel.LAUNCHES} == before
+    got = states["cuda"].params.state_dict()
+    for k, want in states["cpu"].params.state_dict().items():
+        assert got[k].device.type == "cuda"
+        assert (got[k].cpu() - want).abs().max().item() <= 2 * lr_sum, k
+
+
+def test_flash_route_under_grad_raises_on_card(cuda_device):
+    """``use_pallas_attn=True`` under autograd raises before any launch
+    on the card as on the CPU; under ``torch.no_grad()`` the same
+    forward launches the kernel once a layer."""
+    from repro_torch.train import OptConfig, make_train_step
+    cfg = dataclasses.replace(get_config("gemma-2b", reduced=True),
+                              use_pallas_attn=True)
+    state = _fresh_train_state(cfg, cuda_device)
+    batch = _train_batch(cfg, 0, cuda_device)
+    before = dict(fkernel.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="use_pallas_attn"):
+        T.lm_loss(state.params, batch, cfg)
+    with pytest.raises(NotImplementedError, match="use_pallas_attn"):
+        make_train_step(cfg, OptConfig())(state, batch)
+    assert fkernel.LAUNCHES == before
+    with torch.no_grad():
+        T.forward_train(state.params, batch, cfg)
+    torch.cuda.synchronize()
+    assert sum(fkernel.LAUNCHES.values()) == sum(before.values()) \
+        + cfg.n_layers
+
+
+def test_train_resume_on_card_from_checkpoint(cuda_device, tmp_path):
+    """3 steps on the card, a save through `Checkpointer` with a straggler
+    and a failed server, 3 more; a fresh state restored onto the card from
+    the save takes the same 3: params, m and v within rtol 1e-5 / atol
+    1e-6 of the uninterrupted run (CUDA's embedding backward may
+    accumulate in another order), every leaf on the card."""
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.io import IOClientConfig
+    from repro_torch.io.striping import MB
+    from repro_torch.train import OptConfig, load_state, make_train_step
+    cfg = get_config("gemma-2b", reduced=True)
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    ck = Checkpointer(str(tmp_path), n_servers=5, cfg=CheckpointConfig(
+        shard_size_mb=0.25,
+        io=IOClientConfig(policy=PolicyConfig(name="ect", threshold=0.05),
+                          stripe_size=MB // 4)))
+    ck.store.set_write_delay(2, 0.01)
+    ck.store.fail_server(4)
+    state = _fresh_train_state(cfg, cuda_device)
+    for i in range(6):
+        if i == 3:
+            ck.save(3, state)
+        state, _ = step(state, _train_batch(cfg, i, cuda_device))
+    template = _fresh_train_state(cfg, cuda_device)
+    back = load_state(template, ck.restore(target=template))
+    assert int(back.step) == 3 and ck.client.stats()["failed_writes"] >= 1
+    for i in range(3, 6):
+        back, _ = step(back, _train_batch(cfg, i, cuda_device))
+    for got, want in ((back.params.state_dict(), state.params.state_dict()),
+                      (back.opt.m, state.opt.m), (back.opt.v, state.opt.v)):
+        for k in want:
+            assert got[k].device.type == "cuda"
+            torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                       atol=1e-6)
+    ck.close()

@@ -65,7 +65,7 @@ def _setup(arch, compute_dtype, kv_cache_dtype="bfloat16"):
 
 def _f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
@@ -181,6 +181,7 @@ def test_decode_matches_train(arch):
     assert _err(torch.cat(outs, dim=1), ref) < F32_TOL
 
 
+@torch.no_grad()   # a decode-path layer, run as `decode_step` runs it
 def test_decode_attend_masks_ring_slots_past_the_window():
     """A ring with more slots than the sliding window (``init_kv_cache``
     with ``size`` > ``sliding_window``, which ``cache_size_for`` never
