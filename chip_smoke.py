@@ -6,8 +6,9 @@
 From the root of a checkout, with one CUDA card visible.  With
 ``--walls DIR`` it only times the main paths' `run_trials` walls of this
 tree and of the checkout at DIR, alternately (`compare_walls`);
-``--host-path`` runs the host path's phase alone and ``--train-path``
-the training phase alone; ``--sweep-rank RANK
+``--host-path`` runs the host path's phase alone, ``--train-path``
+the training phase alone and ``--contract`` the contract checker's
+phase alone; ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
 
@@ -15,8 +16,17 @@ script starts itself (`sweep_rank_main`).  With no arguments it
 2. builds the CUDA kernels with nvcc (one nvcc per source, started
    together: the stream kernels, the SIMT flash kernel and the wgmma
    flash kernel) and prints every stream kernel instantiation's
-   registers, stack, spills and SASS instruction count (``-Xptxas -v``,
-   ``cuobjdump -sass``) and the other kernels' ``-Xptxas -v`` lines;
+   registers, stack, spills, SASS instruction count and FFMA count
+   (``-Xptxas -v``, ``cuobjdump -sass`` read by
+   `repro_torch.contractcheck.cudacheck`) and the other kernels'
+   ``-Xptxas -v`` lines; then runs the port's contract checker
+   (`repro_torch.contractcheck.run_check`) over this tree with all three
+   layers: the AST layer over the scoped Python files, the CUDA layer
+   over ``sched_stream.cu`` and nvcc's flags, and the SASS of every
+   ``sched_stream_kernel`` instantiation and ``client_merge_kernel``
+   (float atomics and reductions, clock reads), printing each layer's
+   findings, the functions read and their FFMA counts; any live finding,
+   or a missing nvcc or cuobjdump, fails the run;
 3. holds each kernel against its plain PyTorch version on the card: the
    stream kernel in its 1-D form for all eight policies at M in
    {37, 130, 300, 1000}, with a padded final window, T not a multiple of
@@ -191,6 +201,8 @@ from repro_torch import data as tdata  # noqa: E402
 from repro_torch import io as tio  # noqa: E402
 from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.contractcheck import cudacheck, layer_of  # noqa: E402
+from repro_torch.contractcheck import run_check  # noqa: E402
 from repro_torch.core import analysis, engine, policy_core  # noqa: E402
 from repro_torch.core import simulate  # noqa: E402
 from repro_torch.core.engine import KERNEL_POLICIES  # noqa: E402
@@ -454,34 +466,12 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 INSTANCE = re.compile(r"sched_stream_kernelILi(\d)ELi(\d+)ELi(\d)E")
 
 
-def sass_counts(library) -> dict:
-    """(policy code, lanes, level) -> SASS instructions (NOPs left out)
-    of every stream kernel instantiation in the built ``library``, by
-    ``cuobjdump -sass``; {} where the toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        out = subprocess.run([tool, "-sass", str(library)],
-                             capture_output=True, text=True, check=True,
-                             timeout=300).stdout
-    except (OSError, subprocess.SubprocessError):
-        return {}
-    counts, cur = {}, None
-    for line in out.splitlines():
-        if "Function :" in line:
-            m = INSTANCE.search(line)
-            cur = tuple(map(int, m.groups())) if m else None
-            if cur:
-                counts[cur] = 0
-        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S",
-                              line):
-            counts[cur] += 1
-    return counts
-
-
-def stream_kernel_table() -> None:
+def stream_kernel_table() -> dict:
     """Print every stream kernel instantiation's registers, stack frame
-    and spill bytes (ptxas) and SASS instruction count, by policy: level 0
-    with 16 and 32 lanes a stream, the ablate levels 1-3 with 32."""
+    and spill bytes (ptxas) and SASS instruction and FFMA counts, by
+    policy: level 0 with 16 and 32 lanes a stream, the ablate levels 1-3
+    with 32.  Returns ``sched_stream.cu``'s SASS functions by mangled
+    name (`cudacheck.read_sass`)."""
     props, cur = {}, None
     for line in _build.build_log(skernel.SOURCE).splitlines():
         m = INSTANCE.search(line)
@@ -497,18 +487,57 @@ def stream_kernel_table() -> None:
         if cur and m:
             props[cur]["regs"] = int(m[1])
             cur = None
-    sass = sass_counts(_build.build(skernel.SOURCE))
+    funcs = cudacheck.read_sass(_build.build(skernel.SOURCE))
+    sass = {tuple(map(int, m.groups())): fn for fn in funcs.values()
+            if (m := INSTANCE.search(fn.mangled))}
+    if set(sass) != set(props):
+        fail(f"cuobjdump listed {len(sass)} stream kernel instantiations, "
+             f"ptxas compiled {len(props)}")
     print(f"  sched_stream.cu: {len(props)} stream kernel instantiations; "
-          "registers / stack bytes / spill bytes / SASS instructions"
-          + ("" if sass else " (no cuobjdump: SASS not counted)"))
+          "registers / stack bytes / spill bytes / SASS instructions / "
+          "FFMA")
     for name, code in skernel.POLICY_CODES.items():
         cells = []
         for lanes, level in [(16, 0)] + [(32, lv) for lv in LEVELS]:
             pr = props.get((code, lanes, level), {})
+            fn = sass[(code, lanes, level)]
             cells.append(f"{lanes}L/L{level} {pr.get('regs')}/"
                          f"{pr.get('stack')}/{pr.get('spill')}/"
-                         f"{sass.get((code, lanes, level), '-')}")
+                         f"{fn.instructions}/{fn.ffma}")
         print(f"    {name:>10s}: " + ", ".join(cells))
+    return funcs
+
+
+def check_contract(funcs: dict) -> None:
+    """The port's contract checker over this tree, all three layers
+    (`run_check` with ``sass=True``: it builds ``sched_stream.cu`` and
+    reads its SASS); fails on any live finding, warnings too.  ``funcs``:
+    `stream_kernel_table`'s SASS functions, for the counts printed."""
+    t0 = time.perf_counter()
+    findings = run_check(Path(__file__).resolve().parent, sass=True)
+    for layer in ("ast", "cuda", "sass"):
+        mine = [f for f in findings if layer_of(f) == layer]
+        live = [f for f in mine if not f.suppressed]
+        print(f"  contract {layer} layer: {len(live)} live finding(s), "
+              f"{len(mine) - len(live)} suppressed")
+        for f in live:
+            print(f"    {f.format()}")
+    stream = [fn for fn in funcs.values() if INSTANCE.search(fn.mangled)]
+    merge = [fn for fn in funcs.values() if fn.name == "client_merge_kernel"]
+    if len(stream) != 8 * (1 + len(LEVELS)) or len(merge) != 1:
+        fail(f"the SASS layer read {len(stream)} stream kernel "
+             f"instantiations and {len(merge)} merge kernels")
+    ffma = sorted(fn.ffma for fn in stream)
+    print(f"  contract sass layer read {len(funcs)} functions of "
+          f"sched_stream.cu: {len(stream)} sched_stream_kernel "
+          f"instantiations (FFMA {ffma[0]}-{ffma[-1]}, each in the table "
+          f"above) and client_merge_kernel (FFMA {merge[0].ffma}, "
+          f"{merge[0].instructions} SASS instructions)")
+    live = [f for f in findings if not f.suppressed]
+    if live:
+        fail(f"the contract checker has {len(live)} live finding(s): "
+             + "; ".join(f.format() for f in live[:5]))
+    print(f"contract phase: {time.perf_counter() - t0:.1f} s")
 
 
 def initial_tables(kind, t, m, dev):
@@ -2872,7 +2901,7 @@ def main() -> None:
         list(pool.map(_build.build, sources))
     print(f"built {', '.join(src.name for src in sources)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
-    stream_kernel_table()
+    sass_funcs = stream_kernel_table()
     for src in sources:
         lines = _build.build_log(src).splitlines()
         if src == skernel.SOURCE:
@@ -2889,6 +2918,7 @@ def main() -> None:
         smem, blocks = fkernel.wgmma_occupancy(hd)
         print(f"  flash_attn_wgmma.cu at head dim {hd}: {smem} bytes of "
               f"dynamic shared memory, {blocks} blocks per SM")
+    check_contract(sass_funcs)
 
     # -- kernels against their plain versions ------------------------------
     err_1d = 0.0
@@ -3043,14 +3073,16 @@ def main() -> None:
 
 
 def main_phase(flag: str) -> None:
-    """`python3 chip_smoke.py --host-path` or `--train-path`: that
-    phase alone."""
+    """`python3 chip_smoke.py --host-path`, `--train-path` or
+    `--contract`: that phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
     print(card)
     if flag == "--host-path":
         run_host_path(serve.parse_args(SERVE_ARGS), card)
+    elif flag == "--contract":
+        check_contract(stream_kernel_table())
     else:
         run_train_path(card)
     print(json.dumps({"ok": True, "device": {
@@ -3063,7 +3095,7 @@ if __name__ == "__main__":
         compare_walls(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    elif sys.argv[1:] in (["--host-path"], ["--train-path"]):
+    elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"]):
         main_phase(sys.argv[1])
     else:
         main()

@@ -154,6 +154,7 @@ def group_by_object_with_map(work: Workload) -> Tuple[Workload, torch.Tensor]:
     ids = torch.where(work.valid, work.object_ids.to(torch.int64),
                       torch.full_like(work.object_ids, INT32_MAX,
                                       dtype=torch.int64))
+    # contract-ok: CC-SORT engine-side step grouping keeps backend argsort (§10)
     s_ids, order = torch.sort(ids, dim=-1, stable=True)
     s_len = (torch.gather(work.lengths.to(F32), -1, order)
              * torch.gather(work.valid, -1, order).to(F32))
@@ -161,6 +162,7 @@ def group_by_object_with_map(work: Workload) -> Tuple[Workload, torch.Tensor]:
     is_first[..., 1:] = s_ids[..., 1:] != s_ids[..., :-1]
     rows = torch.arange(r, device=ids.device).expand_as(s_ids)
     # rank of each row inside its group, and the longest group
+    # contract-ok: CC-CUMSUM integer prefix max of row indices — association-free (§9)
     first_row = torch.cummax(
         torch.where(is_first, rows, torch.zeros_like(rows)), dim=-1).values
     rank_in_group = rows - first_row
@@ -173,6 +175,7 @@ def group_by_object_with_map(work: Workload) -> Tuple[Workload, torch.Tensor]:
     is_last = torch.ones_like(is_first)
     is_last[..., :-1] = is_first[..., 1:]
     # every group's total sits on its last row; move it to the first row
+    # contract-ok: CC-CUMSUM integer prefix min of row indices — association-free (§9)
     last_row = torch.flip(torch.cummin(torch.flip(
         torch.where(is_last, rows, torch.full_like(rows, r)), [-1]),
         dim=-1).values, [-1])

@@ -129,10 +129,12 @@ def plan_window(cfg: PolicyConfig, state: SchedState,
     (`policy_core.rank_desc`) by construction."""
     r = object_ids.shape[-1]
     m = state.n_servers
+    # contract-ok: CC-SORT engine keeps backend argsort; kernel twin is rank_desc (§10)
     sorted_servers = torch.argsort(-state.probs, dim=-1, stable=True)
     if cfg.name in ("mlml", "nltr"):
         key_len = torch.where(valid, lengths,
                               policy_core.const(float("-inf"), lengths))
+        # contract-ok: CC-SORT engine keeps backend argsort; kernel twin is rank_desc (§13)
         order = torch.argsort(-key_len, dim=-1, stable=True)
     else:
         order = policy_core.lanes(r, lengths).expand(lengths.shape)

@@ -141,6 +141,7 @@ def resolve_client_tile(n_clients: int, client_tile=None) -> int:
 
 def lcg_step(rng: torch.Tensor) -> torch.Tensor:
     """One uint32 LCG step (state held in int64, wrapped to 32 bits)."""
+    # contract-ok: CC-FMA int64 LCG arithmetic is exact (DESIGN.md §9; ROADMAP parity bar)
     return (rng * LCG_A + LCG_C) & _MASK32
 
 
@@ -379,6 +380,7 @@ def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` with one rounding: the product of two float32
     values is exact in float64, and the float64 sum rounds to float32
     (twice, which differs from once only on a float32 tie)."""
+    # contract-ok: CC-FMA XLA's contracted log1p multiply-add, on purpose (DESIGN.md §9; ROADMAP C1)
     return (a.to(torch.float64) * b + c).to(F32)
 
 
@@ -464,6 +466,7 @@ def observe_update(ewma_lat: torch.Tensor, server: torch.Tensor,
     The blend ``(1-α)·old + α·mbps`` runs as separate multiplies and an
     add.  Returns ``(ewma_lat, est_rates)``."""
     old = take(ewma_lat, server)
+    # contract-ok: CC-FMA EWMA row is 1e-6-soft (§9)
     blend = (const(1 - alpha, old) * old
              + const(alpha, old) * mb_per_s)
     new = torch.where(old == 0.0, mb_per_s, blend)

@@ -214,6 +214,7 @@ def sched_stream_batch_ref(object_ids: torch.Tensor, lengths: torch.Tensor,
                 mbps = ln / torch.maximum(lat, eps9)
                 old = _pick(ewma, choose)
                 new = torch.where(old == 0.0, mbps,
+                                  # contract-ok: CC-FMA EWMA row is 1e-6-soft (§9)
                                   a_old * old + a_new * mbps)
                 ewma = torch.where(upd, new, ewma)
                 dflt = torch.maximum(ewma.amax(dim=-1, keepdim=True), one)

@@ -9,7 +9,8 @@ hold against the JAX package).  Flash attention: 2e-5 in float32 and
 path on the card against the same parameters on the CPU.  Training: the
 reduced train steps on the card against the CPU to
 tests/test_torch_train.py's tolerances, the flash route's refusal under
-autograd, and a resume on the card from a checkpoint.  Without a card
+autograd, and a resume on the card from a checkpoint.  The contract
+checker with its SASS layer (it needs the CUDA toolkit).  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
 it runs where JAX is not installed:
 
@@ -1010,3 +1011,58 @@ def test_train_resume_on_card_from_checkpoint(cuda_device, tmp_path):
             torch.testing.assert_close(got[k], want[k], rtol=1e-5,
                                        atol=1e-6)
     ck.close()
+
+
+def test_contract_checker_all_layers_on_card(cuda_device):
+    """`repro_torch.contractcheck` with its SASS layer over the shipped
+    port: the stream kernel's source is built, every instantiation and
+    the merge kernel read from ``cuobjdump -sass``, and no layer has a
+    live finding."""
+    from pathlib import Path
+
+    from repro_torch.contractcheck import cudacheck, layer_of, run_check
+    from repro_torch.kernels import _build
+
+    findings = run_check(Path(__file__).resolve().parents[1], sass=True)
+    assert [f.format() for f in findings if not f.suppressed] == []
+    assert {layer_of(f) for f in findings} <= {"ast", "cuda", "sass"}
+    funcs = cudacheck.read_sass(_build.build(tkernel.SOURCE))
+    names = [fn.name for fn in funcs.values()]
+    assert sum(n.startswith("sched_stream_kernel<") for n in names) == \
+        len(tkernel.POLICY_CODES) * (1 + len(tkernel.ABLATE_LEVELS))
+    assert "client_merge_kernel" in names
+    assert all(fn.instructions > 0 and not fn.hazards
+               for fn in funcs.values())
+
+
+PROBE_CU = """
+__global__ void probe_kernel(float* f, int* i, long long* t, int n) {
+  __shared__ float s[32];
+  __shared__ int h[32];
+  s[threadIdx.x % 32] = 0.f;
+  h[threadIdx.x % 32] = 0;
+  __syncthreads();
+  if (n > 0) atomicAdd(&f[0], 1.0f);
+  if (n > 1) atomicAdd(&s[threadIdx.x % 32], 1.0f);
+  if (n > 2) atomicAdd(&h[threadIdx.x % 32], 1);
+  if (n > 3) t[0] = clock64();
+  __syncthreads();
+  f[1 + threadIdx.x] = s[threadIdx.x % 32] + h[threadIdx.x % 32];
+}
+"""
+
+
+def test_contract_sass_layer_fires_on_card(cuda_device, tmp_path):
+    """The SASS layer on a probe built with the port's own flags: the
+    global float atomic (a REDG .F32), the shared-memory float atomic (a
+    CAS loop) and the clock read are flagged; the integer shared-memory
+    atomic is not."""
+    from repro_torch.contractcheck import cudacheck
+    from repro_torch.kernels import _build
+
+    src = tmp_path / "probe.cu"
+    src.write_text(PROBE_CU)
+    (fn,) = cudacheck.read_sass(_build.build(src)).values()
+    assert fn.name == "probe_kernel"
+    assert sorted(rule for rule, _ in fn.hazards) == [
+        "CU-RNG", "CU-SUM", "CU-SUM"], fn.hazards
