@@ -7,8 +7,9 @@ From the root of a checkout, with one CUDA card visible.  With
 ``--walls DIR`` it only times the main paths' `run_trials` walls of this
 tree and of the checkout at DIR, alternately (`compare_walls`);
 ``--host-path`` runs the host path's phase alone, ``--train-path``
-the training phase alone and ``--contract`` the contract checker's
-phase alone; ``--sweep-rank RANK
+the training phase alone, ``--contract`` the contract checker's
+phase alone and ``--moe`` the Mixture-of-Experts phase alone;
+``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
 
@@ -151,7 +152,30 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    checked first; save and restore GB/s); then
    ``python -m repro_torch.launch.train`` on the reduced gemma-2b in a
    subprocess, 20 steps with checkpoints every 10 under a straggler, and
-   resumed to 30; `--train-path` runs this phase alone;
+   resumed to 30; `--train-path` runs this phase alone; then the
+   Mixture-of-Experts phase (`models/moe.py`; `--moe` alone): (a) the
+   wgmma flash kernel at llama4-scout's heads (S = 16,384, H = 40, KV =
+   8, hd = 128, chunk 8,192, local and ``is_global``) and mixtral's (S =
+   8,192, H = 48, KV = 8, window 4,096) against the plain version one kv
+   head at a time, timed queued beside the plain version and SDPA with a
+   boolean mask, with the bound over the pairs the mask keeps; (b)
+   llama4-scout-17b-a16e at full width cut to 4 layers (one group: three
+   chunked-local layers and the global NoPE one) and (c) mixtral-8x22b
+   cut to 2 layers, each served through `serve.generate` (random weights
+   from seed 0, batch 4, prompt 512, 16 tokens) with the counts zeroed
+   before and read after (one wgmma launch per layer, nothing else):
+   prefill and decode s, tok/s, peak memory, a decode step's kernels by
+   torch.profiler, the MoE half's ms at the prefill and at a decode step;
+   (d) each serve's prefill logits again through the kernel and with
+   `attention_ref` in its place, every MoE layer's experts recorded: in
+   f32 compute the experts equal and the logits within SERVE_F32_TOL; in
+   bf16 the differing choices counted, the logits held when none differ;
+   the prefill's dropped share; (e) the reduced mixtral and llama4 in
+   f32, 3 train steps on the card against the CPU, and mixtral-8x22b at
+   full width cut to 1 layer, 6 steps on one batch 4 x 512 (loss
+   falling, step time, tokens/s, the bf16 peak share by active
+   parameters, peak memory, the MoE terms), counts zeroed before and read
+   after (training launches none);
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -195,6 +219,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.nn.attention import SDPBackend, sdpa_kernel  # noqa: E402
 
 from repro_torch import checkpoint as tckpt  # noqa: E402
 from repro_torch import data as tdata  # noqa: E402
@@ -216,6 +241,7 @@ from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
 from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
 from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
@@ -2289,6 +2315,7 @@ RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
 TRAIN_CLI = ["--arch", "gemma-2b", "--reduced", "--ckpt-every", "10",
              "--inject-straggler", "2"]
 TRAIN_CLI_TIMEOUT_S = 300
+MOE_TERMS = ("lb_loss", "z_loss", "moe_dropped")
 
 
 def train_batch(cfg, step=0, device="cuda"):
@@ -2307,42 +2334,48 @@ def synced_s(fn):
 
 
 def train_flops(cfg, tokens, recompute=False) -> float:
-    """6·N·tokens plus attention's S² products (the port scores every
-    query against every key, masked: 4·B·S²·H·hd a layer forward), both
-    three times over for the backward pass; with ``recompute``, also the
-    layers' forward again (remat="block")."""
-    n = cfg.param_count()
+    """6·N·tokens, N the parameters a token touches
+    (`active_param_count`: an MoE layer's top-k experts, not all E), plus
+    attention's S² products (the port scores every query against every
+    key, masked: 4·B·S²·H·hd a layer forward), both three times over for
+    the backward pass; with ``recompute``, also the layers' forward again
+    (remat="block": the embedding, an untied head and the final norm lie
+    outside the layers)."""
+    n = cfg.active_param_count()
     attn = 4 * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.hd \
         * cfg.n_layers
     flops = 6 * n * tokens + 3 * attn
     if recompute:
-        blocks = n - cfg.padded_vocab * cfg.d_model - cfg.d_model
+        tables = 1 if cfg.tie_embeddings else 2
+        blocks = n - tables * cfg.vocab_size * cfg.d_model - cfg.d_model
         flops += 2 * blocks * tokens + attn
     return flops
 
 
-def run_train_full(card) -> dict:
+def run_train_full(card, cfg=None, label="train (a)") -> dict:
     """(a): gemma-2b at full width and depth (f32 weights, bf16 compute,
-    remat="block"), 6 steps on one repeated batch: step time (median of
-    steps 2-6, each between two synchronizes), tokens/s, the share of the
-    bf16 dense peak, peak memory, kernels a step (torch.profiler) and the
-    optimizer's share of a step (`optimizer.update` alone, CUDA events,
-    median of 3 on one set of gradients)."""
-    cfg = get_config(TRAIN_ARCH)
+    remat="block"), or ``cfg``, 6 steps on one repeated batch: step time
+    (median of steps 2-6, each between two synchronizes), tokens/s, the
+    share of the bf16 dense peak, peak memory, kernels a step
+    (torch.profiler), the optimizer's share of a step (`optimizer.update`
+    alone, CUDA events, median of 3 on one set of gradients) and, for an
+    MoE configuration, the MoE terms of each step."""
+    cfg = cfg or get_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
     state, init_s = synced_s(lambda: tsteps.init_state(
         torch.Generator(device="cuda").manual_seed(0), cfg))
     batch = train_batch(cfg)
     step = tsteps.make_train_step(cfg, TRAIN_OPT)
-    losses, gnorms, secs = [], [], []
+    losses, gnorms, secs, moe_terms = [], [], [], []
     for _ in range(TRAIN_STEPS):
         (state, m), sec = synced_s(lambda: step(state, batch))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+        moe_terms.append(tuple(float(m[k]) for k in MOE_TERMS))
         secs.append(sec)
     peak = torch.cuda.max_memory_allocated()
     if not all(np.isfinite(losses + gnorms)) or losses[-1] >= losses[0]:
-        fail(f"gemma-2b training: losses {losses}, grad norms {gnorms}: "
+        fail(f"{cfg.name} training: losses {losses}, grad norms {gnorms}: "
              "not finite, or not lower at the last step")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_s = float(np.median(secs[1:]))
@@ -2351,16 +2384,19 @@ def run_train_full(card) -> dict:
         / BF16_TENSOR_FLOPS
     state_gb = sum(t.numel() * t.element_size()
                    for _, t in tckpt.flatten_with_paths(state)) / 1e9
-    print(f"train (a) gemma-2b on {card}: {cfg.param_count()} parameters, "
-          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat {cfg.remat}, "
-          f"{cfg.compute_dtype} compute; train state {state_gb:.4f} GB; "
-          f"init {init_s:.3f} s")
+    print(f"{label} {cfg.name} ({cfg.n_layers} layers) on {card}: "
+          f"{cfg.param_count()} parameters ({cfg.active_param_count()} "
+          f"active a token), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat "
+          f"{cfg.remat}, {cfg.compute_dtype} compute; train state "
+          f"{state_gb:.4f} GB; init {init_s:.3f} s")
     print(f"  losses {losses}")
     print(f"  grad norms {gnorms}")
+    if cfg.moe is not None:
+        print(f"  {' / '.join(MOE_TERMS)} per step {moe_terms}")
     print(f"  step s {secs} (median of steps 2-{TRAIN_STEPS} {step_s:.6f} "
           f"s, {tokens / step_s:.1f} tokens/s); bf16 peak share "
-          f"{mfu:.4f} of {BF16_TENSOR_FLOPS:.3g} FLOP/s by 6*N*tokens + "
-          f"attention ({train_flops(cfg, tokens):.6g} FLOP), {hfu:.4f} "
+          f"{mfu:.4f} of {BF16_TENSOR_FLOPS:.3g} FLOP/s by 6*N_active*tokens"
+          f" + attention ({train_flops(cfg, tokens):.6g} FLOP), {hfu:.4f} "
           f"with the remat forward ({train_flops(cfg, tokens, True):.6g})")
     print(f"  peak memory allocated {peak} bytes ({peak / 1e9:.3f} GB)")
 
@@ -2410,32 +2446,39 @@ def fresh_on(cfg, dev, seed=0):
                              step=state.step.to(dev))
 
 
-def run_train_parity(card):
-    """(b): the reduced gemma-2b in float32 compute, 3 train steps on the
-    card against the same steps on the CPU, held to the CPU tests'
-    tolerances (loss and grad norm 1e-5 relative, parameters 2·sum(lr))."""
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+def run_train_parity(card, arch=TRAIN_ARCH, label="train (b)"):
+    """(b): the reduced gemma-2b (or ``arch``) in float32 compute, 3 train
+    steps on the card against the same steps on the CPU, held to the CPU
+    tests' tolerances (loss and grad norm 1e-5 relative, parameters
+    2·sum(lr)); an MoE configuration's terms are printed beside."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               compute_dtype="float32")
     step = tsteps.make_train_step(cfg, TRAIN_OPT)
     card_state, cpu_state = fresh_on(cfg, "cuda"), fresh_on(cfg, "cpu")
     worst, lr_sum = 0.0, 0.0
+    terms = []
     for i in range(TRAIN_PARITY_STEPS):
         card_state, mc = step(card_state, train_batch(cfg, i))
         cpu_state, mh = step(cpu_state, train_batch(cfg, i, "cpu"))
         for k in ("loss", "grad_norm"):
             a, b = float(mc[k]), float(mh[k])
             worst = max(worst, abs(a - b) / abs(b))
+        terms.append([(float(mc[k]), float(mh[k])) for k in MOE_TERMS])
         lr_sum += float(mh["lr"])
     got, want = card_state.params.state_dict(), cpu_state.params.state_dict()
     p_err = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
     ok = worst <= TRAIN_LOSS_RTOL and p_err <= 2 * lr_sum
-    print(f"train (b) reduced gemma-2b, f32, {TRAIN_PARITY_STEPS} steps on "
+    if cfg.moe is not None:
+        print(f"{label} {' / '.join(MOE_TERMS)} per step, (card, CPU): "
+              f"{terms}")
+    print(f"{label} {cfg.name}, f32, {TRAIN_PARITY_STEPS} steps on "
           f"{card} against the CPU: loss / grad norm max rel diff "
           f"{worst:.3g} (tolerance {TRAIN_LOSS_RTOL:g}), parameters max abs "
           f"diff {p_err:.3g} (tolerance 2*sum(lr) = {2 * lr_sum:.3g}) -> "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("the reduced train steps on the card disagree with the CPU")
+        fail(f"the reduced {cfg.name} train steps on the card disagree "
+             "with the CPU")
 
 
 def state_diff(a, b):
@@ -2757,12 +2800,25 @@ def profile_serve(args, prefill_s, card):
     torch.cuda.empty_cache()
 
 
-def flash_bound(b, s, h, kv, hd, elem_bytes=2):
+def mask_pairs(s, window=None, chunk=None) -> int:
+    """The (row, col) pairs a causal mask keeps over S rows, within
+    ``window`` keys of the row and inside its ``chunk``."""
+    rows = np.arange(s, dtype=np.int64)
+    first = np.zeros(s, dtype=np.int64)
+    if window is not None:
+        first = np.maximum(first, rows - window + 1)
+    if chunk is not None:
+        first = np.maximum(first, rows // chunk * chunk)
+    return int((rows - first + 1).sum())
+
+
+def flash_bound(b, s, h, kv, hd, elem_bytes=2, window=None, chunk=None):
     """Least time of one causal call: q and o, k and v once each over
-    HBM; the two products over the (row, col) pairs the causal mask keeps,
-    2 FLOPs per multiply-add, at the bf16 tensor-core peak."""
+    HBM; the two products over the (row, col) pairs the mask keeps
+    (`mask_pairs`), 2 FLOPs per multiply-add, at the bf16 tensor-core
+    peak."""
     bytes_moved = elem_bytes * (2 * b * s * h * hd + 2 * b * s * kv * hd)
-    pairs = s * (s + 1) // 2
+    pairs = mask_pairs(s, window, chunk)
     flops = 2 * 2 * b * h * pairs * hd
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_TENSOR_FLOPS * 1e3
@@ -2815,6 +2871,403 @@ def time_flash(dev, card):
                      for n in ("wgmma", "simt")}
         del q, k, v, qt, kt, vt, calls
     return first
+
+
+# -- the MoE slice: flash at the MoE heads, full-width serves, training ------
+
+# (label, B, S, H, KV, hd, window, chunk, is_global): llama4-scout's heads
+# (GQA 40/8, chunk 8,192, every 4th layer global) and mixtral's (GQA 48/8,
+# window 4,096), bf16, at sequences past the chunk and the window
+MOE_FLASH = (
+    ("llama4 chunked", 1, 16384, 40, 8, 128, None, 8192, False),
+    ("llama4 global", 1, 16384, 40, 8, 128, None, 8192, True),
+    ("mixtral window", 1, 8192, 48, 8, 128, 4096, None, False),
+)
+# the same heads at the shapes the MoE serves' prefills give the kernel
+# (B 4, S 512; the chunk and the window reach past S there), checked only
+MOE_SERVE_FLASH = (
+    ("llama4 serve chunked", 4, 512, 40, 8, 128, None, 8192, False),
+    ("llama4 serve global", 4, 512, 40, 8, 128, None, 8192, True),
+    ("mixtral serve window", 4, 512, 48, 8, 128, 4096, None, False),
+)
+# (arch, layers kept): full width, the depth cut; llama4's 4 layers are
+# one whole group (layers 0-2 chunked-local with RoPE, layer 3 global NoPE)
+MOE_SERVES = (("llama4-scout-17b-a16e", 4), ("mixtral-8x22b", 2))
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 512, 16
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x22b", 1
+
+
+def sdpa_yardstick(q, k, v, window, chunk, is_global):
+    """(label, call, to_bshd) of one PyTorch call that computes the same
+    function, which the port never calls: causal SDPA with ``enable_gqa``
+    on a causal case, and on a chunked one over the (B * S / chunk, chunk)
+    view, where each chunk is causal on its own.  SDPA has no form for a
+    window: there it is the memory-efficient backend with an explicit
+    (S, S) boolean mask and k, v repeated to every query head, which
+    skips no tile.  ``to_bshd`` puts the call's output in (B, S, H, hd)
+    outside the timed call."""
+    b, s, h, hd = q.shape
+    if window is not None and not is_global:
+        g = h // k.shape[2]
+        rows = torch.arange(s, device=q.device)[:, None]
+        cols = torch.arange(s, device=q.device)[None, :]
+        mask = (cols <= rows) & (rows - cols < window)
+        if chunk is not None:
+            mask &= rows // chunk == cols // chunk
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2)
+                  for x in (k, v))
+
+        def masked():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+
+        return ("sdpa efficient, boolean mask", masked,
+                lambda o: o.transpose(1, 2))
+    n = 1 if is_global or chunk is None else s // chunk
+    if s % n:
+        raise ValueError(f"S={s} is no whole number of chunks of {chunk}")
+    qt, kt, vt = (x.reshape(b * n, s // n, x.shape[2], hd).transpose(1, 2)
+                  .contiguous() for x in (q, k, v))
+
+    def causal():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    return ("sdpa causal gqa" + (f" over {n} chunks" if n > 1 else ""),
+            causal, lambda o: o.transpose(1, 2).reshape(b, s, h, hd))
+
+
+def plain_by_kv_head(q, k, v, **kw):
+    """The plain version one kv head at a time (its (B, KV, G, S, S)
+    float32 scores would not fit the card at S = 16,384): heads are
+    independent, so the concatenation is the plain version's output."""
+    g = q.shape[2] // k.shape[2]
+    return torch.cat([fops.flash_attention_plain(
+        q[:, :, j * g:(j + 1) * g], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        **kw) for j in range(k.shape[2])], dim=2)
+
+
+def check_wgmma_case(case, dev, seed, plain):
+    """One MOE_FLASH / MOE_SERVE_FLASH case through `fops.flash_attention`
+    against ``plain`` on the same inputs: the route must be wgmma with one
+    launch, the output finite and within FLASH_TOL.  Returns (q, k, v, the
+    kernel's output, its max abs error)."""
+    label, b, s, h, kv, hd, win, ck, glob = case
+    q, k, v = flash_operands(b, s, h, kv, hd, "bfloat16", dev, seed=seed)
+    kw = dict(window=win, chunk=ck, is_global=glob)
+    route = fops._route(q.dtype, hd, q.device.type)
+    before = fkernel.LAUNCHES["flash_attention_wgmma"]
+    got = fops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launched = fkernel.LAUNCHES["flash_attention_wgmma"] - before
+    err = (got.float() - plain(q, k, v, **kw).float()).abs().max().item()
+    ok = route == "wgmma" and launched == 1 and got.dtype == q.dtype \
+        and bool(torch.isfinite(got).all()) and err <= FLASH_TOL["bfloat16"]
+    print(f"flash wgmma {label} B={b} S={s} H={h}/{kv} hd={hd} "
+          f"window={win} chunk={ck} is_global={glob} bf16: route {route}, "
+          f"{launched} launch, max abs err {err:.3g} against the plain "
+          f"version (tolerance {FLASH_TOL['bfloat16']:g}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the wgmma flash kernel at {label}'s heads disagrees with "
+             "the plain version")
+    return q, k, v, got, err
+
+
+def check_moe_flash(dev, card):
+    """(a): the wgmma kernel at the MoE configurations' heads against the
+    plain version on the card: at the serves' prefill shapes
+    (MOE_SERVE_FLASH), then at sequences past the chunk and the window
+    (MOE_FLASH, the plain version by `plain_by_kv_head`), those timed
+    queued beside the plain version and the `sdpa_yardstick` call.
+    Returns (largest error, one row per case for the kernels line)."""
+    worst, rows = 0.0, []
+    for i, case in enumerate(MOE_SERVE_FLASH):
+        worst = max(worst, check_wgmma_case(case, dev, 510 + i,
+                                            fops.flash_attention_plain)[4])
+        torch.cuda.empty_cache()
+    for i, case in enumerate(MOE_FLASH):
+        label, b, s, h, kv, hd, win, ck, glob = case
+        q, k, v, got, err = check_wgmma_case(case, dev, 500 + i,
+                                             plain_by_kv_head)
+        worst = max(worst, err)
+        kw = dict(window=win, chunk=ck, is_global=glob)
+        torch.cuda.empty_cache()
+        lib_label, lib, to_bshd = sdpa_yardstick(q, k, v, win, ck, glob)
+        lib_err = (to_bshd(lib()).float() - got.float()).abs().max().item()
+        first = len(HELD)
+        ms = queued_ms(lambda: fops.flash_attention(q, k, v, **kw))
+        lib_ms = queued_ms(lib)
+        plain_ms = once_ms(lambda: plain_by_kv_head(q, k, v, **kw))
+        held = any(HELD[first:])
+        b_win, b_ck = (None, None) if glob else (win, ck)
+        bound_ms, bound_by, nbytes, flops = flash_bound(
+            b, s, h, kv, hd, window=b_win, chunk=b_ck)
+        print(f"  timing on {card}, queued: wgmma {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms (one call, by kv head), {lib_label} "
+              f"{lib_ms:.4f} ms (vs wgmma max abs {lib_err:.3g}); bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, {flops} FLOP "
+              f"over {mask_pairs(s, b_win, b_ck)} kept pairs); wgmma "
+              f"{ms / lib_ms:.2f}x {lib_label}'s time, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its "
+              "bound" + ("; host-held" if held else ""))
+        rows.append(dict(case=label, s=s, heads=f"{h}/{kv}", hd=hd,
+                         window=win, chunk=ck, is_global=glob,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library=lib_label, library_ms=lib_ms))
+        del q, k, v, got, lib, to_bshd
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+def moe_serve_setup(arch, n_layers):
+    """(cfg, params, prompts) of a full-width MoE serve cut to
+    ``n_layers``: random weights from seed 0 drawn on the card, prompts
+    from the serve module's own stream, as `serve.setup` makes them."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    prompts = torch.randint(
+        1, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(
+            serve.PROMPT_SEED))
+    return cfg, params, prompts
+
+
+def moe_half_ms(cfg, params, prompts):
+    """ms of the MoE half of layer 0 (norm, router, dispatch, experts,
+    combine, residual) by CUDA events, on bf16 activations of the
+    prefill's B * S tokens and of a decode step's B tokens."""
+    block = params.blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, s in (("prefill", prompts.shape[1]), ("decode", 1)):
+        x = torch.randn((prompts.shape[0], s, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.cdtype)
+        with torch.no_grad():
+            out[name] = timed_ms(lambda: T._apply_mlp_or_moe(block, x, cfg),
+                                 reps=10)
+    return out
+
+
+def run_moe_serve(arch, n_layers, card):
+    """(b)/(c): `serve.generate` of ``arch`` at full width cut to
+    ``n_layers``, batch 4, prompt 512, 16 tokens, with the launch counts
+    zeroed just before and read just after: one wgmma flash launch per
+    layer in the prefill and no other kernel of the port.  Then a decode
+    step's kernels and busy share by torch.profiler, and the MoE half's
+    ms at the prefill and at a decode step."""
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params, prompts), init_s = synced_s(
+        lambda: moe_serve_setup(arch, n_layers))
+    zero_counts()
+    tokens, prefill_s, decode_s = serve.generate(params, prompts, cfg,
+                                                 MOE_GEN)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=n_layers):
+        fail(f"{arch} serve launched {counts}, expected {n_layers} "
+             "flash_attention_wgmma launches and no other")
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens.cpu().numpy()
+    if gen.shape != (MOE_BATCH, MOE_GEN) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        fail(f"{arch} serve returned tokens of shape {gen.shape} outside "
+             f"[0, {cfg.padded_vocab})")
+    tok_s = MOE_BATCH * (MOE_GEN - 1) / decode_s
+    c_prefill = MOE.capacity(cfg.moe, MOE_BATCH * MOE_PROMPT)
+    print(f"serve {arch} cut to {n_layers} layers on {card}: "
+          f"{cfg.param_count()} parameters ({cfg.active_param_count()} "
+          f"active a token; {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k}), f32 weights drawn in {init_s:.3f} s; batch "
+          f"{MOE_BATCH}, prompt {MOE_PROMPT}, gen {MOE_GEN}: prefill "
+          f"{prefill_s:.4f} s, decode {decode_s:.4f} s ({tok_s:.2f} tok/s "
+          f"over {MOE_BATCH * (MOE_GEN - 1)} decoded tokens); peak memory "
+          f"{peak} bytes ({peak / 1e9:.3f} GB); launches {counts}")
+    print(f"  tokens: {gen.tolist()}")
+
+    caches = T.init_caches(cfg, MOE_BATCH, MOE_PROMPT + MOE_GEN)
+    tok = prompts[:, :1]
+    T.decode_step(params, caches, tok, 0, cfg)
+    (_, _), step_s = synced_s(lambda: T.decode_step(params, caches, tok, 1,
+                                                    cfg))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_s = synced_s(lambda: T.decode_step(params, caches, tok, 2,
+                                                   cfg))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in events)
+    busy_ms = sum(device_ms(e) for e in events)
+    half = moe_half_ms(cfg, params, prompts)
+    share = n_layers * half["decode"] / (step_s * 1e3)
+    print(f"  one decode step {step_s * 1e3:.3f} ms; profiled step: "
+          f"{n_kernels} kernels, device busy {busy_ms:.3f} ms of "
+          f"{wall_s * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (wall_s * 1e3):.4f})")
+    for e in sorted(events, key=device_ms, reverse=True)[:5]:
+        print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+    print(f"  MoE half of a layer: {half['prefill']:.4f} ms at the prefill "
+          f"({MOE_BATCH * MOE_PROMPT} tokens, capacity {c_prefill}), "
+          f"{half['decode']:.4f} ms at a decode step ({MOE_BATCH} tokens, "
+          f"capacity {MOE.capacity(cfg.moe, MOE_BATCH)}); {n_layers} layers"
+          f" of it are {share:.4f} of the decode step")
+    del caches
+    return cfg, params, prompts, gen, counts
+
+
+def held_flash(checked):
+    """`fops.flash_attention`, each call also through the plain version on
+    the same q, k, v and held to FLASH_TOL, its (route, error) appended to
+    ``checked``: the serve's own activations through the kernel, the
+    wgmma one in bf16 compute and the SIMT one in float32."""
+    kernel = fops.flash_attention
+
+    def call(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        dtype = str(q.dtype).removeprefix("torch.")
+        err = (out.float() - fops.flash_attention_plain(q, k, v, **kw)
+               .float()).abs().max().item()
+        checked.append((fops._route(q.dtype, q.shape[-1], q.device.type),
+                        err))
+        if not err <= FLASH_TOL[dtype]:
+            fail(f"flash attention in the MoE prefill ({dtype}, "
+                 f"{tuple(q.shape)}, {kw}) is {err:.3g} from its plain "
+                 "version")
+        return out
+
+    return call
+
+
+def forward_with_experts(params, batch, cfg, plain):
+    """(logits as float32, aux, every MoE layer's expert indices, the
+    flash calls' (route, error)) of the prefill's forward, with the flash
+    route's kernel, each call held to its plain version (`held_flash`),
+    or, ``plain``, the plain version in its place."""
+    chosen, checked = [], []
+    route = MOE.route
+
+    def recording(p, xt, c):
+        r = route(p, xt, c)
+        chosen.append(r.gate_idx)
+        return r
+
+    flash = fops.flash_attention_plain if plain else held_flash(checked)
+    with torch.no_grad(), mock.patch.object(MOE, "route", recording), \
+            mock.patch.object(fops, "flash_attention", flash):
+        logits, aux = T.forward_train_aux(params, batch, cfg)
+    torch.cuda.synchronize()
+    if logits.shape != (*batch["tokens"].shape, cfg.padded_vocab) or not \
+            bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.name} prefill logits ({cfg.compute_dtype}) have shape "
+             f"{tuple(logits.shape)} or non-finite values")
+    return logits.float(), aux, chosen, checked
+
+
+def check_moe_logits(cfg, params, prompts, tokens):
+    """(d): the serve's prefill logits again through the kernel and with
+    `attention_ref` in its place.  float32 compute: every MoE layer's
+    experts equal on both routes and the logits within SERVE_F32_TOL.
+    bfloat16 compute (the serve's): the expert choices that differ are
+    counted; with none, the logits are held to SERVE_BF16_REL_TOL of the
+    largest float32 logit, else the difference is printed.  The first
+    served token is the bf16 kernel logits' argmax; then the bf16
+    prefill's dropped share."""
+    batch = {"tokens": prompts}
+    runs = {}
+    for compute in ("float32", "bfloat16"):
+        run_cfg = dataclasses.replace(cfg, compute_dtype=compute,
+                                      use_pallas_attn=True)
+        runs[compute] = [forward_with_experts(params, batch, run_cfg, plain)
+                         for plain in (False, True)]
+    (k32, _, ki32, c32), (r32, _, ri32, _) = runs["float32"]
+    (k16, aux16, ki16, c16), (r16, _, ri16, _) = runs["bfloat16"]
+    for compute, checked, want in (("float32", c32, "simt"),
+                                   ("bfloat16", c16, "wgmma")):
+        routes = sorted({r for r, _ in checked})
+        print(f"  prefill flash calls, {compute} compute: {len(checked)} "
+              f"through {routes}, each against the plain version on its "
+              f"inputs, max abs err {max(e for _, e in checked):.3g} "
+              f"(tolerance {FLASH_TOL[compute]:g})")
+        if routes != [want] or len(checked) != cfg.n_layers:
+            fail(f"{cfg.name}'s {compute} prefill ran flash attention "
+                 f"{len(checked)} times through {routes}, expected "
+                 f"{cfg.n_layers} through {want}")
+    flips = lambda xs, ys: [int((a != b).sum()) for a, b in zip(xs, ys)]
+    flips32 = sum(flips(ki32, ri32))
+    by_layer16 = flips(ki16, ri16)
+    flips16 = sum(by_layer16)
+    n_choices = sum(a.numel() for a in ki16)
+    scale = r32.abs().max().item()
+    err32 = (k32 - r32).abs().max().item()
+    err16 = (k16 - r16).abs().max().item()
+    tol16 = SERVE_BF16_REL_TOL * scale
+    ok32 = flips32 == 0 and err32 <= SERVE_F32_TOL and len(ki32) == \
+        len(ri32) == cfg.n_layers
+    print(f"  prefill logits, float32 compute: kernel vs attention_ref max "
+          f"abs err {err32:.4g} (tolerance {SERVE_F32_TOL:g}; max |logit| "
+          f"{scale:.4g}); expert choices differing {flips32} of "
+          f"{sum(a.numel() for a in ki32)} over {len(ki32)} MoE layers -> "
+          f"{'ok' if ok32 else 'FAIL'}")
+    note = (f"-> {'ok' if err16 <= tol16 else 'FAIL'}" if flips16 == 0 else
+            "-> not held: a flipped expert moves a token's output by O(1)")
+    print(f"  prefill logits, bfloat16 compute: expert choices differing "
+          f"{flips16} of {n_choices} (by layer {by_layer16}; against the f32"
+          f" kernel route's: kernel {sum(flips(ki16, ki32))}, attention_ref "
+          f"{sum(flips(ri16, ki32))}); kernel vs attention_ref max abs err "
+          f"{err16:.4g} (tolerance {tol16:.4g} when none differ); each "
+          f"against the f32 route: kernel {(k16 - r32).abs().max().item():.4g}"
+          f", attention_ref {(r16 - r32).abs().max().item():.4g} {note}")
+    if not ok32 or (flips16 == 0 and err16 > tol16):
+        fail(f"{cfg.name} prefill logits through the kernel disagree with "
+             "the attention_ref route")
+    first = torch.argmax(k16[:, -1], dim=-1).cpu().numpy()
+    if not (first == tokens[:, 0]).all():
+        fail(f"{cfg.name}: the first served token is not the prefill "
+             "logits' argmax")
+    dropped = float(aux16.dropped) / cfg.n_layers
+    c = MOE.capacity(cfg.moe, prompts.numel())
+    print(f"  prefill dropped share (bf16, the serve's): {dropped:.6f} of "
+          f"the {prompts.numel()} tokens x top-{cfg.moe.top_k} pairs, "
+          f"capacity {c} a layer, mean over {cfg.n_layers} layers")
+
+
+def run_moe_train(card):
+    """(e): the reduced mixtral and llama4 in float32, 3 steps on the card
+    against the CPU; mixtral-8x22b at full width cut to 1 layer, 6 steps
+    on one repeated batch 4 x 512 (`run_train_full`)."""
+    for arch in (MOE_TRAIN_ARCH, MOE_SERVES[0][0]):
+        run_train_parity(card, arch, label="moe (e)")
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    run_train_full(card, cfg, label="moe (e)")
+
+
+def run_moe_path(dev, card):
+    """The MoE phase, (a)-(e).  Returns (the flash rows' largest error,
+    their rows, each serve's wgmma launches)."""
+    t0 = time.perf_counter()
+    err, rows = check_moe_flash(dev, card)
+    launches = {}
+    for arch, n_layers in MOE_SERVES:
+        cfg, params, prompts, tokens, counts = run_moe_serve(
+            arch, n_layers, card)
+        check_moe_logits(cfg, params, prompts, tokens)
+        launches[arch] = counts["flash_attention_wgmma"]
+        del params, prompts
+        torch.cuda.empty_cache()
+    zero_counts()
+    run_moe_train(card)
+    counts = all_counts()
+    if any(counts.values()):
+        fail(f"the MoE training launched {counts}")
+    print(f"MoE training: launches {counts}")
+    print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
+    return err, rows, launches
 
 
 def time_ablate_split(cfg, log, pols, dev, card):
@@ -3025,6 +3478,7 @@ def main() -> None:
     # -- the host path: the client-side I/O path, checkpoints, tokens ------
     host_launches = run_host_path(serve_args, card)
     run_train_path(card)
+    err_moe, moe_rows, moe_launches = run_moe_path(dev, card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -3059,8 +3513,16 @@ def main() -> None:
                replaces="src/repro/kernels/flash_attention/kernel.py:33",
                launches=serve_counts[f"flash_attention_{r}"],
                max_abs_err=err_flash[r], **t_flash[r])
-          for r, f in (("simt", "flash_attn.cu"),
-                       ("wgmma", "flash_attn_wgmma.cu"))),
+          for r, f in (("simt", "flash_attn.cu"),)),
+        dict(name="flash_attention_wgmma", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attn_wgmma.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:33",
+             launches=serve_counts["flash_attention_wgmma"],
+             max_abs_err=err_flash["wgmma"],
+             moe_serve_launches=moe_launches, moe_max_abs_err=err_moe,
+             moe_shapes=moe_rows,
+             **t_flash["wgmma"]),
         dict(name="threefry2x32", route="cuda",
              source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
              replaces="src/repro/core/simulate.py:784 (jax.random's "
@@ -3073,8 +3535,8 @@ def main() -> None:
 
 
 def main_phase(flag: str) -> None:
-    """`python3 chip_smoke.py --host-path`, `--train-path` or
-    `--contract`: that phase alone."""
+    """`python3 chip_smoke.py --host-path`, `--train-path`,
+    `--contract` or `--moe`: that phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
@@ -3083,6 +3545,8 @@ def main_phase(flag: str) -> None:
         run_host_path(serve.parse_args(SERVE_ARGS), card)
     elif flag == "--contract":
         check_contract(stream_kernel_table())
+    elif flag == "--moe":
+        run_moe_path(torch.device("cuda"), card)
     else:
         run_train_path(card)
     print(json.dumps({"ok": True, "device": {
@@ -3095,7 +3559,8 @@ if __name__ == "__main__":
         compare_walls(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
-    elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"]):
+    elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
+                          ["--moe"]):
         main_phase(sys.argv[1])
     else:
         main()

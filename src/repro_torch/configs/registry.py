@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (+ reduced twin).
 
-The ids are the JAX package's.  The three dense, attention-only
-architectures run in the port; the others need blocks the port has not
-ported yet and raise naming their ROADMAP item.
+The ids are the JAX package's.  The three dense attention-only
+architectures and the two attention + MoE ones (mixtral, llama4) run in
+the port; the others need blocks the port has not ported yet and raise
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ _MODULES: Dict[str, str] = {
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
 }
 
 # what each architecture not yet in the port waits for
@@ -24,9 +27,7 @@ _UNPORTED: Dict[str, str] = {
     "qwen2-72b": "the sharded multi-card stack (a 72B model)",
     "qwen2-vl-72b": "M-RoPE and the sharded multi-card stack",
     "xlstm-1.3b": "the mLSTM/sLSTM blocks",
-    "jamba-v0.1-52b": "the mamba block and MoE",
-    "mixtral-8x22b": "MoE",
-    "llama4-scout-17b-a16e": "MoE and chunked-local attention layers",
+    "jamba-v0.1-52b": "the mamba block",
 }
 
 ARCH_IDS: List[str] = list(_MODULES) + list(_UNPORTED)

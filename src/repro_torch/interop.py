@@ -105,7 +105,9 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     the port's `LM`: ``embed``/``final_norm``/``head`` as they are, and
     each layer's block from ``groups/pos_<p>/...``, whose leaves carry a
     leading ``n_groups`` axis (layer ``g * G + p`` is entry ``g`` of
-    position ``p``).  dtypes are kept."""
+    position ``p``): ``attn_norm``, ``attn``, ``mlp_norm`` and ``mlp``, or
+    ``moe`` on the layers ``cfg.layer_is_moe`` names.  dtypes are
+    kept."""
     T._check_supported(cfg)
     dev = resolve_device(device)
 
@@ -120,9 +122,10 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     for li in range(cfg.n_layers):
         g, pos = divmod(li, cfg.group_size)
         block = groups[f"pos_{pos}"]
-        if set(block) != {"attn_norm", "attn", "mlp_norm", "mlp"}:
+        want = {*T.BLOCK_NAMES, "moe" if cfg.layer_is_moe(li) else "mlp"}
+        if set(block) != want:
             raise ValueError(f"layer {li} holds {sorted(block)}; the port "
-                             "loads attention blocks with a dense MLP")
+                             f"loads {sorted(want)} there")
         blocks.append({name: tensors(sub, g) for name, sub in block.items()})
     head = tensors(tree["head"]) if "head" in tree else None
     return T.LM(tensors(tree["embed"]), tensors(tree["final_norm"]), head,

@@ -12,22 +12,26 @@ mode the caller sets, as the JAX functions do under ``jax.grad``, with
 points run under ``torch.no_grad()``, so serving allocates nothing for
 autograd.
 
-Four entry points:
+Five entry points:
 
 * ``forward_train(params, batch, cfg)``   -> logits (B, S, Vp)
+* ``forward_train_aux(params, batch, cfg)`` -> logits, MoE terms (the
+  JAX package's ``forward_train``)
 * ``lm_loss(params, batch, cfg)``         -> loss, metrics
 * ``forward_prefill(params, batch, cfg)`` -> logits, decode caches
 * ``decode_step(params, caches, tokens, pos, cfg)`` -> logits, caches
 
-The port runs ``"attn"`` blocks with dense MLPs; MoE, mamba, mLSTM and
-sLSTM blocks raise naming ROADMAP Queue A13.  Decode caches are a list
-with one ring cache per layer, updated in place.
+The port runs ``"attn"`` blocks, each with a dense MLP or, on the layers
+``cfg.layer_is_moe`` names, a Mixture-of-Experts FFN (`models.moe`) whose
+auxiliary terms are summed over the layers for `lm_loss`; mamba, mLSTM
+and sLSTM blocks raise naming ROADMAP Queue A13.  Decode caches are a
+list with one ring cache per layer, updated in place.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +40,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -50,8 +55,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.group_pattern:
         if kind != "attn":
             raise _unported(f"the {kind!r} block")
-    if cfg.moe is not None:
-        raise _unported("the MoE block")
+    if cfg.moe is not None and cfg.group_size % cfg.moe.every_n_layers:
+        raise ValueError("moe.every_n_layers must divide group size")
     if cfg.enc_dec:
         raise _unported("the encoder-decoder stack")
 
@@ -60,12 +65,20 @@ def _param_dict(tensors: Params) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(t) for k, t in tensors.items()})
 
 
+BLOCK_NAMES = ("attn_norm", "attn", "mlp_norm")
+
+
 class Block(nn.Module):
-    """One attention block: ``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``."""
+    """One attention block: ``attn_norm``, ``attn``, ``mlp_norm``, then
+    ``mlp`` (dense) or ``moe`` (an MoE layer)."""
 
     def __init__(self, groups: Dict[str, Params]):
         super().__init__()
-        for name in ("attn_norm", "attn", "mlp_norm", "mlp"):
+        ffn = [name for name in ("mlp", "moe") if name in groups]
+        if set(groups) != {*BLOCK_NAMES, *ffn} or len(ffn) != 1:
+            raise ValueError(f"a block holds {sorted(groups)}: "
+                             f"{list(BLOCK_NAMES)} and one of mlp, moe")
+        for name in (*BLOCK_NAMES, *ffn):
             setattr(self, name, _param_dict(groups[name]))
 
 
@@ -86,14 +99,18 @@ class LM(nn.Module):
 # init
 # ===========================================================================
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig,
-                device) -> Dict[str, Params]:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device,
+                layer_is_moe: bool) -> Dict[str, Params]:
     f32 = torch.float32
-    return {"attn_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
-            "attn": A.init_attention(gen, cfg, device),
-            "mlp_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                              cfg.pdtype, device)}
+    p = {"attn_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
+         "attn": A.init_attention(gen, cfg, device),
+         "mlp_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device)}
+    if layer_is_moe:
+        p["moe"] = MOE.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                              cfg.pdtype, device)
+    return p
 
 
 def group_flags(cfg: ModelConfig) -> torch.Tensor:
@@ -125,7 +142,8 @@ def build_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         head = {"w": L.he_init(gen, (cfg.d_model, cfg.padded_vocab),
                                cfg.pdtype, fan_in=cfg.d_model, device=dev)}
-    blocks = [_init_block(gen, cfg, dev) for _ in range(cfg.n_layers)]
+    blocks = [_init_block(gen, cfg, dev, cfg.layer_is_moe(li))
+              for li in range(cfg.n_layers)]
     final_norm = L.init_norm(cfg.norm, cfg.d_model, torch.float32, dev)
     return LM(embed, final_norm, head, blocks)
 
@@ -134,15 +152,38 @@ def build_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
 # forward (train / prefill)
 # ===========================================================================
 
-def _apply_mlp_or_moe(p: Block, x: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
-    """The MLP half of a block (MoE layers raise at init)."""
+class ScanAux(NamedTuple):
+    """The MoE auxiliary terms, summed over the layers."""
+
+    lb_loss: torch.Tensor
+    z_loss: torch.Tensor
+    dropped: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def zero_aux(device: torch.device) -> ScanAux:
+    """A dense layer's terms (the JAX package's ``ZERO_AUX``), made once
+    for each device: nothing writes to them, so the decode step of a
+    dense model launches no kernel for them (normal tensors, also when
+    first asked for under ``torch.inference_mode``)."""
+    with torch.inference_mode(False):
+        return ScanAux(*(torch.zeros((), device=device) for _ in range(3)))
+
+
+def _apply_mlp_or_moe(p: Block, x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, ScanAux]:
+    """The FFN half of a block: (x + FFN(norm(x)), the MoE terms, zeros
+    on a dense layer)."""
     h = L.apply_norm(cfg.norm, p.mlp_norm, x)
-    return x + L.apply_mlp(p.mlp, h, cfg)
+    if hasattr(p, "moe"):
+        y, aux = MOE.apply_moe(p.moe, h, cfg)
+        return x + y, ScanAux(*aux)
+    return x + L.apply_mlp(p.mlp, h, cfg), zero_aux(x.device)
 
 
 def _block_train(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
-                 positions: torch.Tensor, is_global: bool) -> torch.Tensor:
+                 positions: torch.Tensor, is_global: bool
+                 ) -> Tuple[torch.Tensor, ScanAux]:
     if kind != "attn":
         raise _unported(f"the {kind!r} block")
     h = L.apply_norm(cfg.norm, p.attn_norm, x)
@@ -185,33 +226,43 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 def backbone(params: LM, x: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor) -> torch.Tensor:
-    """Run every layer over embedded activations x: (B, S, d)."""
+             positions: torch.Tensor) -> Tuple[torch.Tensor, ScanAux]:
+    """Run every layer over embedded activations x: (B, S, d); returns
+    the activations and the MoE terms summed over the layers (zeros for a
+    dense model)."""
     flags = group_flags(cfg).tolist()
     layer = _maybe_remat(_block_train, cfg)
+    aux = zero_aux(x.device)
     for li, block in enumerate(params.blocks):
         g, pos = divmod(li, cfg.group_size)
-        x = layer(block, x, cfg.block_kind(pos), cfg, positions,
-                  flags[g][pos])
-    return x
+        x, a = layer(block, x, cfg.block_kind(pos), cfg, positions,
+                     flags[g][pos])
+        aux = ScanAux(*(t + u for t, u in zip(aux, a)))
+    return x, aux
 
 
-def forward_train(params: LM, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, S, padded_vocab) of the teacher-forced forward over
-    ``batch["tokens"]`` (B, S), under the caller's grad mode.  (The JAX
-    function also returns the MoE auxiliary losses; the port has no MoE
-    yet.)"""
+def forward_train_aux(params: LM, batch: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, ScanAux]:
+    """The JAX package's ``forward_train``: logits (B, S, padded_vocab) of
+    the teacher-forced forward over ``batch["tokens"]`` (B, S), under the
+    caller's grad mode, and the MoE terms summed over the layers."""
     tokens = batch["tokens"]
     if "patch_embeds" in batch:
         raise _unported("the VLM patch-embedding frontend")
     b, s = tokens.shape
     x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = backbone(params, x, cfg, positions)
+    x, aux = backbone(params, x, cfg, positions)
     x = L.apply_norm(cfg.norm, params.final_norm, x)
     return L.unembed(params.head, params.embed, x, cfg.cdtype,
-                     softcap=cfg.logit_softcap)
+                     softcap=cfg.logit_softcap), aux
+
+
+def forward_train(params: LM, batch: Dict[str, torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The logits of `forward_train_aux` alone: what serving, the prefill
+    step and the tests read."""
+    return forward_train_aux(params, batch, cfg)[0]
 
 
 # ===========================================================================
@@ -225,9 +276,12 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     ``logsumexp`` over the padded vocabulary (padded columns count, as in
     the JAX package) less the gold logit.  The gold logit is a gather,
     bit-equal to the JAX package's iota-mask sum of one non-zero term.
-    Returns ``(total, {"nll", "lb_loss", "z_loss", "moe_dropped"})``; the
-    MoE terms are 0 while the port has no MoE, so ``total`` is the NLL."""
-    logits = forward_train(params, batch, cfg)
+    The total adds the MoE terms averaged over the MoE layers: the
+    load-balancing loss weighted by ``moe.router_aux_weight`` and the
+    z-loss.  Returns ``(total, {"nll", "lb_loss", "z_loss",
+    "moe_dropped"})``, the last three averaged over the MoE layers (0 for
+    a dense model, whose total is its NLL)."""
+    logits, aux = forward_train_aux(params, batch, cfg)
     targets = batch["targets"]
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
@@ -237,9 +291,13 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
         mask = torch.ones_like(targets, dtype=torch.float32)
     nll = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
                                                        min=1.0)
-    zero = torch.zeros((), device=nll.device)
-    return nll, {"nll": nll, "lb_loss": zero, "z_loss": zero,
-                 "moe_dropped": zero}
+    n_moe_layers = sum(1 for i in range(cfg.n_layers) if cfg.layer_is_moe(i))
+    scale = 1.0 / max(n_moe_layers, 1)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    total = nll + aux_w * scale * aux.lb_loss + scale * aux.z_loss
+    return total, {"nll": nll, "lb_loss": aux.lb_loss * scale,
+                   "z_loss": aux.z_loss * scale,
+                   "moe_dropped": aux.dropped * scale}
 
 
 # ===========================================================================
@@ -269,7 +327,8 @@ def _block_decode(p: Block, cache: Params, x: torch.Tensor, kind: str,
     h = L.apply_norm(cfg.norm, p.attn_norm, x)
     y, cache = A.decode_attend(p.attn, h, cache, pos, cfg,
                                is_global=is_global, use_rope=not is_global)
-    return _apply_mlp_or_moe(p, x + y, cfg), cache
+    # an MoE layer routes the step's B tokens as one pool
+    return _apply_mlp_or_moe(p, x + y, cfg)[0], cache
 
 
 def _decode_layers(params: LM, caches: List[Params], tokens: torch.Tensor,

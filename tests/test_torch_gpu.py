@@ -8,7 +8,8 @@ hold against the JAX package).  Flash attention: 2e-5 in float32 and
 2e-2 in bfloat16, the JAX package's own tolerances; the reduced serving
 path on the card against the same parameters on the CPU.  Training: the
 reduced train steps on the card against the CPU to
-tests/test_torch_train.py's tolerances, the flash route's refusal under
+tests/test_torch_train.py's tolerances (the MoE configurations' too, and
+`apply_moe` card against CPU), the flash route's refusal under
 autograd, and a resume on the card from a checkpoint.  The contract
 checker with its SASS layer (it needs the CUDA toolkit).  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
@@ -607,7 +608,8 @@ def test_flash_kernel_options_on_card(kw, cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["gemma-2b", "stablelm-1.6b",
-                                  "h2o-danube-3-4b"])
+                                  "h2o-danube-3-4b", "mixtral-8x22b",
+                                  "llama4-scout-17b-a16e"])
 def test_reduced_serve_on_card_matches_cpu(arch, cuda_device):
     """The serving path on the card (the flash kernel in the prefill)
     against the same parameters and prompts on the CPU (its plain
@@ -951,6 +953,60 @@ def test_train_steps_on_card_match_cpu(cuda_device):
     for k, want in states["cpu"].params.state_dict().items():
         assert got[k].device.type == "cuda"
         assert (got[k].cpu() - want).abs().max().item() <= 2 * lr_sum, k
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e"])
+def test_moe_train_steps_on_card_match_cpu(arch, cuda_device):
+    """The reduced MoE configurations in float32 compute, 3 train steps
+    on the card against the CPU, as `test_train_steps_on_card_match_cpu`
+    holds gemma-2b; the MoE terms to 1e-5 relative too."""
+    from repro_torch.train import OptConfig, make_train_step
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    states = {d: _fresh_train_state(cfg, d) for d in ("cuda", "cpu")}
+    lr_sum = 0.0
+    for i in range(3):
+        metrics = {}
+        for d in states:
+            states[d], metrics[d] = step(states[d], _train_batch(cfg, i, d))
+        for k in ("loss", "grad_norm", "lb_loss", "z_loss"):
+            got, want = float(metrics["cuda"][k]), float(metrics["cpu"][k])
+            assert abs(got - want) <= 1e-5 * abs(want), (i, k)
+        assert abs(float(metrics["cuda"]["moe_dropped"])
+                   - float(metrics["cpu"]["moe_dropped"])) <= 1e-6
+        lr_sum += float(metrics["cpu"]["lr"])
+    got = states["cuda"].params.state_dict()
+    for k, want in states["cpu"].params.state_dict().items():
+        assert (got[k].cpu() - want).abs().max().item() <= 2 * lr_sum, k
+
+
+@pytest.mark.parametrize("n_experts,top_k", [(16, 1), (8, 2)])
+def test_apply_moe_on_card_matches_cpu(n_experts, top_k, cuda_device):
+    """`models.moe.apply_moe` on the card against the CPU on the same
+    parameters and 2,048 tokens, float32 compute: the experts and the
+    dropped share equal, the output to 1e-4 and the aux terms to 1e-5
+    relative."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.config import MoEConfig
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x22b", reduced=True), d_model=256, d_ff=512,
+        compute_dtype="float32",
+        moe=MoEConfig(n_experts=n_experts, top_k=top_k))
+    p = MOE.init_moe(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((4, 512, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    want, waux = MOE.apply_moe(p, x, cfg)
+    pc = {k: v.to(cuda_device) for k, v in p.items()}
+    got, gaux = MOE.apply_moe(pc, x.to(cuda_device), cfg)
+    xt = x.reshape(-1, cfg.d_model)
+    assert torch.equal(MOE.route(pc, xt.to(cuda_device), cfg).gate_idx.cpu(),
+                       MOE.route(p, xt, cfg).gate_idx)
+    assert float(gaux.dropped_fraction) == float(waux.dropped_fraction)
+    assert (got.cpu() - want).abs().max().item() < 1e-4
+    for g, w in zip(gaux[:2], waux[:2]):
+        assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
 
 
 def test_flash_route_under_grad_raises_on_card(cuda_device):

@@ -41,6 +41,8 @@ from repro_torch.models import transformer as T
 from repro_torch.train import make_prefill_step
 
 ARCHS = ["gemma-2b", "stablelm-1.6b", "h2o-danube-3-4b"]
+# the MoE architectures: tests/test_torch_moe.py
+PORTED = ARCHS + ["mixtral-8x22b", "llama4-scout-17b-a16e"]
 B, S, GEN = 2, 24, 4       # S past danube's reduced window (16)
 F32_TOL, BF16_TOL = 1e-4, 0.1
 
@@ -91,13 +93,16 @@ def test_model_config_from_fields_carries_every_config(arch):
     port = interop.model_config_from_fields(dataclasses.asdict(ref))
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.hd == ref.hd and port.n_groups == ref.n_groups
-    if arch not in ARCHS:
+    if arch in PORTED:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref)
+    else:
         with pytest.raises(NotImplementedError, match="Queue A13"):
             get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-v0.1-52b",
-                                  "xlstm-1.3b", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b",
+                                  "whisper-tiny"])
 def test_unported_blocks_raise_naming_roadmap(arch):
     cfg = interop.model_config_from_fields(
         dataclasses.asdict(jax_get_config(arch, reduced=True)))
