@@ -8,7 +8,8 @@ From the root of a checkout, with one CUDA card visible.  With
 tree and of the checkout at DIR, alternately (`compare_walls`);
 ``--host-path`` runs the host path's phase alone, ``--train-path``
 the training phase alone, ``--contract`` the contract checker's
-phase alone and ``--moe`` the Mixture-of-Experts phase alone;
+phase alone, ``--moe`` the Mixture-of-Experts phase alone and ``--ssm``
+the state-space and recurrent phase alone;
 ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
@@ -175,7 +176,25 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    full width cut to 1 layer, 6 steps on one batch 4 x 512 (loss
    falling, step time, tokens/s, the bf16 peak share by active
    parameters, peak memory, the MoE terms), counts zeroed before and read
-   after (training launches none);
+   after (training launches none); then the state-space and recurrent
+   phase (`models/ssm.py`; `--ssm` alone): (a) xlstm-1.3b at full width
+   and depth (48 layers: 6 sLSTM, 42 mLSTM) and (b) jamba-v0.1-52b at
+   full width cut to 8 layers (one whole group: 7 mamba layers, the
+   attention layer at 4, MoE on the odd layers; the card's free memory
+   checked first), each served through `serve.generate` (random weights
+   from seed 0, batch 4, prompt 512, 16 tokens) with the counts zeroed
+   before and read after (xlstm: no launch; jamba: one wgmma flash launch
+   a prefill, nothing else): prefill and decode s, tok/s, peak memory,
+   the decode state's bytes; the prefill's forward again with each flash
+   call held to its plain version, its argmax against the first served
+   token, its share of the prefill and, for jamba, its dropped share; a
+   decode step by torch.profiler; (c) the reduced jamba and xlstm (also
+   with ``ssm.chunk`` 8, so `forward_train` takes the chunkwise mLSTM) in
+   float32 on the card against the CPU: `forward_train`, every prefill
+   cache field and 4 decode steps' logits within 1e-4 of the largest
+   value, and 3 train steps (jamba at seq 64; xlstm 1 at seq 512);
+   (d) the chunkwise mLSTM against the sequential one at xlstm's full
+   widths (B 1, S 512, H 4, hd 1024, chunk 128) on the card;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -242,6 +261,7 @@ from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
 from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import optimizer as topt  # noqa: E402
 from repro_torch.train import steps as tsteps  # noqa: E402
@@ -2318,9 +2338,9 @@ TRAIN_CLI_TIMEOUT_S = 300
 MOE_TERMS = ("lb_loss", "z_loss", "moe_dropped")
 
 
-def train_batch(cfg, step=0, device="cuda"):
+def train_batch(cfg, step=0, device="cuda", seq=TRAIN_SEQ):
     return tdata.SyntheticTokens(tdata.DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        vocab_size=cfg.vocab_size, seq_len=seq,
         global_batch=TRAIN_BATCH)).batch_at(step, device)
 
 
@@ -2446,36 +2466,41 @@ def fresh_on(cfg, dev, seed=0):
                              step=state.step.to(dev))
 
 
-def run_train_parity(card, arch=TRAIN_ARCH, label="train (b)"):
-    """(b): the reduced gemma-2b (or ``arch``) in float32 compute, 3 train
-    steps on the card against the same steps on the CPU, held to the CPU
-    tests' tolerances (loss and grad norm 1e-5 relative, parameters
-    2·sum(lr)); an MoE configuration's terms are printed beside."""
-    cfg = dataclasses.replace(get_config(arch, reduced=True),
-                              compute_dtype="float32")
+def run_train_parity(card, arch=TRAIN_ARCH, label="train (b)", cfg=None,
+                     steps=TRAIN_PARITY_STEPS, gnorm_rtol=TRAIN_LOSS_RTOL,
+                     seq=TRAIN_SEQ):
+    """(b): the reduced gemma-2b (or ``arch``, or ``cfg``) in float32
+    compute, 3 (or ``steps``) train steps at batch 4 x 512 (or ``seq``) on
+    the card against the same steps on the CPU, held to the CPU tests'
+    tolerances (loss 1e-5 and grad norm ``gnorm_rtol`` relative,
+    parameters 2·sum(lr)); an MoE configuration's terms are printed
+    beside."""
+    cfg = cfg or dataclasses.replace(get_config(arch, reduced=True),
+                                     compute_dtype="float32")
     step = tsteps.make_train_step(cfg, TRAIN_OPT)
     card_state, cpu_state = fresh_on(cfg, "cuda"), fresh_on(cfg, "cpu")
-    worst, lr_sum = 0.0, 0.0
+    worst, lr_sum = [0.0, 0.0], 0.0
     terms = []
-    for i in range(TRAIN_PARITY_STEPS):
-        card_state, mc = step(card_state, train_batch(cfg, i))
-        cpu_state, mh = step(cpu_state, train_batch(cfg, i, "cpu"))
-        for k in ("loss", "grad_norm"):
-            a, b = float(mc[k]), float(mh[k])
-            worst = max(worst, abs(a - b) / abs(b))
+    for i in range(steps):
+        card_state, mc = step(card_state, train_batch(cfg, i, seq=seq))
+        cpu_state, mh = step(cpu_state, train_batch(cfg, i, "cpu", seq))
+        worst = [max(w, abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k])))
+                 for w, k in zip(worst, ("loss", "grad_norm"))]
         terms.append([(float(mc[k]), float(mh[k])) for k in MOE_TERMS])
         lr_sum += float(mh["lr"])
     got, want = card_state.params.state_dict(), cpu_state.params.state_dict()
     p_err = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
-    ok = worst <= TRAIN_LOSS_RTOL and p_err <= 2 * lr_sum
+    ok = worst[0] <= TRAIN_LOSS_RTOL and worst[1] <= gnorm_rtol and \
+        p_err <= 2 * lr_sum
     if cfg.moe is not None:
         print(f"{label} {' / '.join(MOE_TERMS)} per step, (card, CPU): "
               f"{terms}")
-    print(f"{label} {cfg.name}, f32, {TRAIN_PARITY_STEPS} steps on "
-          f"{card} against the CPU: loss / grad norm max rel diff "
-          f"{worst:.3g} (tolerance {TRAIN_LOSS_RTOL:g}), parameters max abs "
-          f"diff {p_err:.3g} (tolerance 2*sum(lr) = {2 * lr_sum:.3g}) -> "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"{label} {cfg.name}, f32, {steps} steps at seq {seq} on {card} "
+          "against the "
+          f"CPU: loss / grad norm max rel diff {worst[0]:.3g} / "
+          f"{worst[1]:.3g} (tolerance {TRAIN_LOSS_RTOL:g} / {gnorm_rtol:g});"
+          f" parameters max abs diff {p_err:.3g} (tolerance 2*sum(lr) = "
+          f"{2 * lr_sum:.3g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"the reduced {cfg.name} train steps on the card disagree "
              "with the CPU")
@@ -3024,9 +3049,9 @@ def check_moe_flash(dev, card):
 
 
 def moe_serve_setup(arch, n_layers):
-    """(cfg, params, prompts) of a full-width MoE serve cut to
-    ``n_layers``: random weights from seed 0 drawn on the card, prompts
-    from the serve module's own stream, as `serve.setup` makes them."""
+    """(cfg, params, prompts) of a full-width serve cut to ``n_layers``:
+    random weights from seed 0 drawn on the card, prompts from the serve
+    module's own stream, as `serve.setup` makes them."""
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     params = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
     prompts = torch.randint(
@@ -3135,7 +3160,7 @@ def held_flash(checked):
         checked.append((fops._route(q.dtype, q.shape[-1], q.device.type),
                         err))
         if not err <= FLASH_TOL[dtype]:
-            fail(f"flash attention in the MoE prefill ({dtype}, "
+            fail(f"flash attention in the prefill ({dtype}, "
                  f"{tuple(q.shape)}, {kw}) is {err:.3g} from its plain "
                  "version")
         return out
@@ -3268,6 +3293,281 @@ def run_moe_path(dev, card):
     print(f"MoE training: launches {counts}")
     print(f"MoE phase: {time.perf_counter() - t0:.1f} s")
     return err, rows, launches
+
+
+# -- the state-space and recurrent blocks (models/ssm.py) ----------------------
+
+# (arch, layers kept: None is full depth); jamba's 8 layers are one whole
+# group: mamba at 0-3 and 5-7, attention at 4, MoE on the odd layers
+SSM_SERVES = (("xlstm-1.3b", None), ("jamba-v0.1-52b", 8))
+SSM_BATCH, SSM_PROMPT, SSM_GEN = MOE_BATCH, MOE_PROMPT, MOE_GEN
+# (arch, ssm.chunk replaced by, or None): the reduced configs card vs CPU;
+# chunk 8 sends xlstm's forward_train through the chunkwise mLSTM at S 24
+SSM_PARITY = (("jamba-v0.1-52b", None), ("xlstm-1.3b", None),
+              ("xlstm-1.3b", 8))
+SSM_PARITY_B, SSM_PARITY_S, SSM_DECODE_STEPS = 2, 24, 4
+SSM_TOL = 1e-4           # of the largest value, as tests/test_torch_ssm.py
+# (arch, seq, steps) of the reduced train steps card against CPU, the
+# grad norm held to SSM_GNORM_RTOL: jamba at seq 64 (its mamba scans loop
+# over time: 512 steps took 36.7 s of the card's host); xlstm at seq 512,
+# where its reduced chunk (128) sends the mLSTM through the chunkwise
+# route as the full size trains, one step: its later steps drift apart
+# between any two summation orders (see
+# tests/test_torch_ssm.py::test_train_step_matches_jax)
+SSM_TRAIN = (("jamba-v0.1-52b", 64, TRAIN_PARITY_STEPS),
+             ("xlstm-1.3b", TRAIN_SEQ, 1))
+# Adam's normalized update turns rounding-level differences in gradients
+# that nearly cancel into parameter differences of a fraction of lr:
+# jamba's third step at seq 64 gave grad norms 1.44e-5 apart on the card
+# and the CPU (its first two 1.9e-7, 7.3e-7), xlstm's first 3.51e-5
+SSM_GNORM_RTOL = 1e-4
+MLSTM_FULL = dict(b=1, s=512, h=4, hd=1024, chunk=128)
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_card_room(label, nbytes) -> None:
+    """Print the card's free and total memory; fail unless ``nbytes`` of
+    weights and 15% beside them fit."""
+    free, total = torch.cuda.mem_get_info()
+    print(f"{label}: {nbytes} bytes ({nbytes / 1e9:.3f} GB) of f32 weights;"
+          f" the card has {free / 1e9:.3f} GB free of {total / 1e9:.3f} GB")
+    if free < 1.15 * nbytes:
+        fail(f"{label} needs {1.15 * nbytes / 1e9:.1f} GB of the card, "
+             f"{free / 1e9:.1f} GB free")
+
+
+def run_ssm_serve(arch, n_layers, card):
+    """(a)/(b): `serve.generate` of ``arch`` at full width (cut to
+    ``n_layers`` where given), batch 4, prompt 512, 16 tokens, counts
+    zeroed just before and read just after: one wgmma flash launch per
+    attention layer in the prefill, no other kernel of the port.  Then
+    the prefill's forward again with each flash call held to its plain
+    version (`held_flash`), its last logits' argmax equal to the first
+    served token and, with MoE layers, its dropped share; the forward's
+    share of the prefill; one decode step by torch.profiler.  Returns
+    (the wgmma launches, the held flash calls' largest error)."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    n_attn = sum(cfg.block_kind(li % cfg.group_size) == "attn"
+                 for li in range(cfg.n_layers))
+    meta = T.build_lm(None, cfg, torch.device("meta"))
+    n_tensor = sum(p.numel() for p in meta.parameters())
+    label = f"ssm serve {arch}" + (f" cut to {n_layers} layers"
+                                   if n_layers else "")
+    check_card_room(label, tensor_bytes(meta.parameters()))
+    del meta
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params, prompts), init_s = synced_s(
+        lambda: moe_serve_setup(arch, cfg.n_layers))
+    zero_counts()
+    tokens, prefill_s, decode_s = serve.generate(params, prompts, cfg,
+                                                 SSM_GEN)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=n_attn):
+        fail(f"{arch} serve launched {counts}, expected {n_attn} "
+             "flash_attention_wgmma launches and no other")
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens.cpu().numpy()
+    if gen.shape != (SSM_BATCH, SSM_GEN) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        fail(f"{arch} serve returned tokens of shape {gen.shape} outside "
+             f"[0, {cfg.padded_vocab})")
+    tok_s = SSM_BATCH * (SSM_GEN - 1) / decode_s
+    caches = T.init_caches(cfg, SSM_BATCH, SSM_PROMPT + SSM_GEN)
+    state_bytes = tensor_bytes(t for c in caches for t in c.values())
+    print(f"{label} on {card}: {cfg.param_count()} parameters by "
+          f"param_count, {n_tensor} in its tensors ({n_tensor * 4} bytes of"
+          f" f32), {n_attn} attention layers, drawn in {init_s:.3f} s; batch"
+          f" {SSM_BATCH}, prompt {SSM_PROMPT}, gen {SSM_GEN}: prefill "
+          f"{prefill_s:.4f} s, decode {decode_s:.4f} s ({tok_s:.2f} tok/s "
+          f"over {SSM_BATCH * (SSM_GEN - 1)} decoded tokens); peak memory "
+          f"{peak} bytes ({peak / 1e9:.3f} GB); decode state {state_bytes} "
+          f"bytes ({state_bytes / 1e9:.3f} GB); launches {counts}")
+    print(f"  tokens: {gen.tolist()}")
+
+    checked = []
+    run_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    with torch.no_grad(), mock.patch.object(fops, "flash_attention",
+                                            held_flash(checked)):
+        (logits, aux), fwd_s = synced_s(lambda: T.forward_train_aux(
+            params, {"tokens": prompts}, run_cfg))
+    routes = sorted({r for r, _ in checked})
+    err = max((e for _, e in checked), default=0.0)
+    if len(checked) != n_attn or routes not in ([], ["wgmma"]):
+        fail(f"{arch}'s prefill ran flash attention {len(checked)} times "
+             f"through {routes}, expected {n_attn} through wgmma")
+    if not bool(torch.isfinite(logits).all()) or not (torch.argmax(
+            logits[:, -1], dim=-1).cpu().numpy() == gen[:, 0]).all():
+        fail(f"{arch}: prefill logits not finite, or the first served "
+             "token is not their argmax")
+    line = (f"  prefill forward {fwd_s:.4f} s of the prefill's "
+            f"{prefill_s:.4f} s (the rest is the decode replay); flash calls"
+            f" {len(checked)} through {routes}, each against the plain "
+            f"version on its inputs, max abs err {err:.3g} (tolerance "
+            f"{FLASH_TOL['bfloat16']:g})")
+    if cfg.moe is not None:
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+        line += (f"; prefill dropped share {float(aux.dropped) / n_moe:.6f}"
+                 f" (capacity {MOE.capacity(cfg.moe, prompts.numel())}, "
+                 f"mean over {n_moe} MoE layers)")
+    print(line)
+    del logits, aux
+
+    tok = prompts[:, :1]
+    T.decode_step(params, caches, tok, 0, cfg)
+    (_, _), step_s = synced_s(lambda: T.decode_step(params, caches, tok, 1,
+                                                    cfg))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_s = synced_s(lambda: T.decode_step(params, caches, tok, 2,
+                                                   cfg))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(device_ms(e) for e in events)
+    print(f"  one decode step {step_s * 1e3:.3f} ms; profiled step: "
+          f"{sum(e.count for e in events)} kernels, device busy "
+          f"{busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (wall_s * 1e3):.4f})")
+    for e in sorted(events, key=device_ms, reverse=True)[:5]:
+        print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+    del params, prompts, caches
+    torch.cuda.empty_cache()
+    return counts["flash_attention_wgmma"], err
+
+
+def ssm_parity_cfg(arch, chunk):
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    if chunk is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    return cfg
+
+
+def within(got, want) -> tuple:
+    """(max abs diff, the tolerance: SSM_TOL of the largest value, at
+    least 1), ``want`` on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    tol = SSM_TOL * max(1.0, want.abs().max().item())
+    return (got - want).abs().max().item(), tol
+
+
+def check_ssm_parity(card):
+    """(c): each SSM_PARITY config in float32, random weights drawn on the
+    CPU from seed 0 and copied to the card: `forward_train`, every
+    `forward_prefill` cache field and the logits of 4 decode steps on the
+    card against the CPU, within SSM_TOL of the largest value; then the
+    SSM_TRAIN steps card against CPU (`run_train_parity`)."""
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, 512, (SSM_PARITY_B, SSM_PARITY_S)))
+    for arch, chunk in SSM_PARITY:
+        cfg = ssm_parity_cfg(arch, chunk)
+        run, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            params = T.init_lm(torch.Generator().manual_seed(0), cfg,
+                               device="cpu").to(dev)
+            toks = prompts.to(dev)
+            with torch.no_grad():
+                train = T.forward_train(params, {"tokens": toks}, cfg)
+            logits, caches = T.forward_prefill(
+                params, {"tokens": toks},
+                dataclasses.replace(cfg, use_pallas_attn=True),
+                cache_len=SSM_PARITY_S + SSM_DECODE_STEPS)
+            steps, tok = [], torch.argmax(logits[:, -1:], dim=-1)
+            for i in range(SSM_DECODE_STEPS):
+                lg, caches = T.decode_step(params, caches, tok,
+                                           SSM_PARITY_S + i, cfg)
+                steps.append(lg)
+                tok = torch.argmax(lg, dim=-1)
+            run[dev] = (train, logits, caches, torch.cat(steps, dim=1))
+            secs[dev] = time.perf_counter() - t0
+        (tc, lc, cc, dc), (th, lh, ch, dh) = run["cuda"], run["cpu"]
+        checks = [("forward_train", *within(tc, th)),
+                  ("prefill logits", *within(lc, lh)),
+                  ("decode logits", *within(dc, dh))]
+        for li, (a, b) in enumerate(zip(cc, ch)):
+            for name in b:
+                checks.append((f"layer {li} {name}", *within(a[name],
+                                                             b[name])))
+        bad = [c for c in checks if not c[1] <= c[2]]
+        worst = max(checks, key=lambda c: c[1] / c[2])
+        print(f"ssm (c) {cfg.name} (ssm.chunk {cfg.ssm.chunk}) f32 on {card}"
+              f" against the CPU: {len(checks)} comparisons (forward_train, "
+              f"prefill logits, {SSM_DECODE_STEPS} decode steps' logits, "
+              f"{len(cc)} layers' cache fields); worst {worst[0]}: max abs "
+              f"diff {worst[1]:.3g} (tolerance {worst[2]:.3g}); card "
+              f"{secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s -> "
+              f"{'ok' if not bad else 'FAIL'}")
+        if bad:
+            fail(f"{cfg.name} on the card disagrees with the CPU: {bad[:5]}")
+    for arch, seq, steps in SSM_TRAIN:
+        _, sec = synced_s(lambda: run_train_parity(
+            card, arch, label="ssm (c)", cfg=ssm_parity_cfg(arch, None),
+            steps=steps, gnorm_rtol=SSM_GNORM_RTOL, seq=seq))
+        print(f"  ({arch} train steps, card and CPU: {sec:.2f} s)")
+
+
+def check_mlstm_full(dev, card):
+    """(d): `mlstm_chunkwise` against `mlstm_sequential` at xlstm's full
+    widths (MLSTM_FULL) in float32 on the card, from the zero state, the
+    outputs and the final state within SSM_TOL of their largest values;
+    each form's time by CUDA events (one call after a warm-up)."""
+    b, s, h, hd, ck = (MLSTM_FULL[k] for k in ("b", "s", "h", "hd",
+                                               "chunk"))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+               for _ in "qkv")
+    li = torch.randn((b, s, h), generator=gen, device=dev)
+    lf = F.logsigmoid(torch.randn((b, s, h), generator=gen, device=dev) + 3)
+    state = SSM.MLSTMState(
+        c=torch.zeros((b, h, hd, hd), device=dev),
+        n=torch.zeros((b, h, hd), device=dev),
+        m=torch.full((b, h), -1e30, device=dev))
+    with torch.no_grad():
+        (yc, sc), chunk_s = synced_s(lambda: SSM.mlstm_chunkwise(
+            q, k, v, li, lf, state, ck))
+        (ys, ss), seq_s = synced_s(lambda: SSM.mlstm_sequential(
+            q, k, v, li, lf, state))
+    rel = [((a - w).abs().max() / w.abs().max()).item()
+           for a, w in zip((yc, *sc), (ys, *ss))]
+    ok = all(r <= SSM_TOL for r in rel) and bool(torch.isfinite(yc).all())
+    print(f"ssm (d) mLSTM at xlstm's full widths (B {b}, S {s}, H {h}, hd "
+          f"{hd}, chunk {ck}, f32) on {card}: chunkwise against sequential,"
+          f" max abs diff over the largest value: y {rel[0]:.3g}, c "
+          f"{rel[1]:.3g}, n {rel[2]:.3g}, m {rel[3]:.3g} (tolerance "
+          f"{SSM_TOL:g}); chunkwise {chunk_s * 1e3:.2f} ms, sequential "
+          f"{seq_s * 1e3:.2f} ms (one call each, host clock around "
+          f"synchronizes) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the chunkwise mLSTM disagrees with the sequential one at "
+             "xlstm's full widths")
+
+
+def run_ssm_path(dev, card):
+    """The SSM phase, (a)-(d).  Returns (each serve's wgmma launches, the
+    held flash calls' largest error)."""
+    t0 = time.perf_counter()
+    launches, err, part_s = {}, 0.0, []
+    for arch, n_layers in SSM_SERVES:
+        (launches[arch], e), sec = synced_s(
+            lambda: run_ssm_serve(arch, n_layers, card))
+        err = max(err, e)
+        part_s.append(sec)
+    zero_counts()
+    part_s.append(synced_s(lambda: check_ssm_parity(card))[1])
+    part_s.append(synced_s(lambda: check_mlstm_full(dev, card))[1])
+    print(f"SSM phase: {time.perf_counter() - t0:.1f} s (a) {part_s[0]:.1f}"
+          f" s, (b) {part_s[1]:.1f} s, (c) {part_s[2]:.1f} s, (d) "
+          f"{part_s[3]:.1f} s")
+    return launches, err
 
 
 def time_ablate_split(cfg, log, pols, dev, card):
@@ -3479,6 +3779,7 @@ def main() -> None:
     host_launches = run_host_path(serve_args, card)
     run_train_path(card)
     err_moe, moe_rows, moe_launches = run_moe_path(dev, card)
+    ssm_launches, err_ssm = run_ssm_path(dev, card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -3521,7 +3822,8 @@ def main() -> None:
              launches=serve_counts["flash_attention_wgmma"],
              max_abs_err=err_flash["wgmma"],
              moe_serve_launches=moe_launches, moe_max_abs_err=err_moe,
-             moe_shapes=moe_rows,
+             moe_shapes=moe_rows, ssm_serve_launches=ssm_launches,
+             ssm_max_abs_err=err_ssm,
              **t_flash["wgmma"]),
         dict(name="threefry2x32", route="cuda",
              source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
@@ -3536,7 +3838,7 @@ def main() -> None:
 
 def main_phase(flag: str) -> None:
     """`python3 chip_smoke.py --host-path`, `--train-path`,
-    `--contract` or `--moe`: that phase alone."""
+    `--contract`, `--moe` or `--ssm`: that phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
@@ -3547,6 +3849,8 @@ def main_phase(flag: str) -> None:
         check_contract(stream_kernel_table())
     elif flag == "--moe":
         run_moe_path(torch.device("cuda"), card)
+    elif flag == "--ssm":
+        run_ssm_path(torch.device("cuda"), card)
     else:
         run_train_path(card)
     print(json.dumps({"ok": True, "device": {
@@ -3560,7 +3864,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
-                          ["--moe"]):
+                          ["--moe"], ["--ssm"]):
         main_phase(sys.argv[1])
     else:
         main()

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (+ reduced twin).
 
 The ids are the JAX package's.  The three dense attention-only
-architectures and the two attention + MoE ones (mixtral, llama4) run in
-the port; the others need blocks the port has not ported yet and raise
-naming their ROADMAP item.
+architectures, the two attention + MoE ones (mixtral, llama4), the
+mamba + attention + MoE hybrid (jamba) and the xLSTM (xlstm) run in the
+port; the others need parts the port has not ported yet and raise naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ _MODULES: Dict[str, str] = {
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 # what each architecture not yet in the port waits for
@@ -26,8 +29,6 @@ _UNPORTED: Dict[str, str] = {
     "whisper-tiny": "the encoder-decoder stack and cross-attention",
     "qwen2-72b": "the sharded multi-card stack (a 72B model)",
     "qwen2-vl-72b": "M-RoPE and the sharded multi-card stack",
-    "xlstm-1.3b": "the mLSTM/sLSTM blocks",
-    "jamba-v0.1-52b": "the mamba block",
 }
 
 ARCH_IDS: List[str] = list(_MODULES) + list(_UNPORTED)

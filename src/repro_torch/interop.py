@@ -105,9 +105,11 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     the port's `LM`: ``embed``/``final_norm``/``head`` as they are, and
     each layer's block from ``groups/pos_<p>/...``, whose leaves carry a
     leading ``n_groups`` axis (layer ``g * G + p`` is entry ``g`` of
-    position ``p``): ``attn_norm``, ``attn``, ``mlp_norm`` and ``mlp``, or
-    ``moe`` on the layers ``cfg.layer_is_moe`` names.  dtypes are
-    kept."""
+    position ``p``), with the leaf sets of the position's block kind
+    (`transformer.block_names`): an attention or mamba block's norms, its
+    ``attn`` or ``mamba``, and ``mlp``, or ``moe`` on the layers
+    ``cfg.layer_is_moe`` names; an mLSTM or sLSTM block's norms and
+    ``cell``.  dtypes are kept."""
     T._check_supported(cfg)
     dev = resolve_device(device)
 
@@ -122,7 +124,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     for li in range(cfg.n_layers):
         g, pos = divmod(li, cfg.group_size)
         block = groups[f"pos_{pos}"]
-        want = {*T.BLOCK_NAMES, "moe" if cfg.layer_is_moe(li) else "mlp"}
+        want = set(T.block_names(cfg.block_kind(pos), cfg.layer_is_moe(li)))
         if set(block) != want:
             raise ValueError(f"layer {li} holds {sorted(block)}; the port "
                              f"loads {sorted(want)} there")

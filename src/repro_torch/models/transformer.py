@@ -21,11 +21,15 @@ Five entry points:
 * ``forward_prefill(params, batch, cfg)`` -> logits, decode caches
 * ``decode_step(params, caches, tokens, pos, cfg)`` -> logits, caches
 
-The port runs ``"attn"`` blocks, each with a dense MLP or, on the layers
+Four block kinds, as in the JAX package: ``"attn"`` and ``"mamba"``
+(`models.ssm`) blocks, each followed by a dense MLP or, on the layers
 ``cfg.layer_is_moe`` names, a Mixture-of-Experts FFN (`models.moe`) whose
-auxiliary terms are summed over the layers for `lm_loss`; mamba, mLSTM
-and sLSTM blocks raise naming ROADMAP Queue A13.  Decode caches are a
-list with one ring cache per layer, updated in place.
+auxiliary terms are summed over the layers for `lm_loss`; ``"mlstm"``
+and ``"slstm"`` blocks are self-contained (the sLSTM's post-FFN is part
+of its cell).  The encoder-decoder stack raises naming ROADMAP Queue
+A13.  Decode caches are a list with one entry per layer: an attention
+layer's ring cache, updated in place, or a recurrent layer's state as a
+dict of its fields, replaced each step.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -53,8 +58,8 @@ def _unported(what: str) -> NotImplementedError:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.group_pattern:
-        if kind != "attn":
-            raise _unported(f"the {kind!r} block")
+        if kind not in BLOCK_NAMES:
+            raise ValueError(f"unknown block kind {kind!r}")
     if cfg.moe is not None and cfg.group_size % cfg.moe.every_n_layers:
         raise ValueError("moe.every_n_layers must divide group size")
     if cfg.enc_dec:
@@ -65,20 +70,37 @@ def _param_dict(tensors: Params) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(t) for k, t in tensors.items()})
 
 
-BLOCK_NAMES = ("attn_norm", "attn", "mlp_norm")
+# each block kind's leaf sets; "attn" and "mamba" blocks add "mlp" or "moe"
+BLOCK_NAMES = {"attn": ("attn_norm", "attn", "mlp_norm"),
+               "mamba": ("attn_norm", "mamba", "mlp_norm"),
+               "mlstm": ("norm", "cell"),
+               "slstm": ("norm", "ff_norm", "cell")}
+FFN_KINDS = ("attn", "mamba")
+
+
+def block_names(kind: str, layer_is_moe: bool) -> Tuple[str, ...]:
+    """The leaf sets of a ``kind`` block, as the JAX package's
+    ``_init_block`` makes them."""
+    if kind not in FFN_KINDS:
+        return BLOCK_NAMES[kind]
+    return (*BLOCK_NAMES[kind], "moe" if layer_is_moe else "mlp")
 
 
 class Block(nn.Module):
-    """One attention block: ``attn_norm``, ``attn``, ``mlp_norm``, then
-    ``mlp`` (dense) or ``moe`` (an MoE layer)."""
+    """One block, its leaf sets named as the JAX package's: an attention
+    or mamba block (``attn_norm``, ``attn`` or ``mamba``, ``mlp_norm``,
+    then ``mlp`` (dense) or ``moe``), an mLSTM block (``norm``, ``cell``)
+    or an sLSTM block (``norm``, ``ff_norm``, ``cell``)."""
 
     def __init__(self, groups: Dict[str, Params]):
         super().__init__()
-        ffn = [name for name in ("mlp", "moe") if name in groups]
-        if set(groups) != {*BLOCK_NAMES, *ffn} or len(ffn) != 1:
-            raise ValueError(f"a block holds {sorted(groups)}: "
-                             f"{list(BLOCK_NAMES)} and one of mlp, moe")
-        for name in (*BLOCK_NAMES, *ffn):
+        allowed = [block_names(kind, moe) for kind in BLOCK_NAMES
+                   for moe in (False, True)]
+        names = next((n for n in allowed if set(groups) == set(n)), None)
+        if names is None:
+            raise ValueError(f"a block holds {sorted(groups)}: one of "
+                             f"{sorted({tuple(sorted(n)) for n in allowed})}")
+        for name in names:
             setattr(self, name, _param_dict(groups[name]))
 
 
@@ -99,12 +121,22 @@ class LM(nn.Module):
 # init
 # ===========================================================================
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, device,
+def _init_block(gen: torch.Generator, cfg: ModelConfig, device, kind: str,
                 layer_is_moe: bool) -> Dict[str, Params]:
     f32 = torch.float32
-    p = {"attn_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device),
-         "attn": A.init_attention(gen, cfg, device),
-         "mlp_norm": L.init_norm(cfg.norm, cfg.d_model, f32, device)}
+    norm = lambda: L.init_norm(cfg.norm, cfg.d_model, f32, device)
+    if kind == "mlstm":
+        return {"norm": norm(), "cell": SSM.init_mlstm(gen, cfg, device)}
+    if kind == "slstm":
+        return {"norm": norm(), "ff_norm": norm(),
+                "cell": SSM.init_slstm(gen, cfg, device)}
+    if kind == "attn":
+        p = {"attn_norm": norm(), "attn": A.init_attention(gen, cfg, device)}
+    elif kind == "mamba":
+        p = {"attn_norm": norm(), "mamba": SSM.init_mamba(gen, cfg, device)}
+    else:
+        raise ValueError(kind)
+    p["mlp_norm"] = norm()
     if layer_is_moe:
         p["moe"] = MOE.init_moe(gen, cfg, device)
     else:
@@ -142,7 +174,8 @@ def build_lm(gen: Optional[torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         head = {"w": L.he_init(gen, (cfg.d_model, cfg.padded_vocab),
                                cfg.pdtype, fan_in=cfg.d_model, device=dev)}
-    blocks = [_init_block(gen, cfg, dev, cfg.layer_is_moe(li))
+    blocks = [_init_block(gen, cfg, dev, cfg.block_kind(li % cfg.group_size),
+                          cfg.layer_is_moe(li))
               for li in range(cfg.n_layers)]
     final_norm = L.init_norm(cfg.norm, cfg.d_model, torch.float32, dev)
     return LM(embed, final_norm, head, blocks)
@@ -184,13 +217,38 @@ def _apply_mlp_or_moe(p: Block, x: torch.Tensor, cfg: ModelConfig
 def _block_train(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
                  positions: torch.Tensor, is_global: bool
                  ) -> Tuple[torch.Tensor, ScanAux]:
-    if kind != "attn":
-        raise _unported(f"the {kind!r} block")
-    h = L.apply_norm(cfg.norm, p.attn_norm, x)
-    # llama4: NoPE on global layers
-    x = x + A.self_attend(p.attn, h, positions, cfg, is_global=is_global,
-                          use_rope=not is_global)
-    return _apply_mlp_or_moe(p, x, cfg)
+    if kind == "attn":
+        h = L.apply_norm(cfg.norm, p.attn_norm, x)
+        # llama4: NoPE on global layers
+        x = x + A.self_attend(p.attn, h, positions, cfg, is_global=is_global,
+                              use_rope=not is_global)
+        return _apply_mlp_or_moe(p, x, cfg)
+    x, _, aux = _recurrent_block(p, x, kind, cfg, None)
+    return x, aux
+
+
+def _recurrent_block(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
+                     state: Optional[tuple]):
+    """A mamba, mLSTM or sLSTM block over x: (B, T, d) from ``state``
+    (None: the zero state) -> (x, the new state, the MoE terms).  The
+    sLSTM block adds the cell on ``norm(x)``, then its post-FFN on
+    ``ff_norm`` of the sum."""
+    if kind == "mamba":
+        h = L.apply_norm(cfg.norm, p.attn_norm, x)
+        y, state = SSM.apply_mamba(p.mamba, h, cfg, state)
+        x, aux = _apply_mlp_or_moe(p, x + y, cfg)
+        return x, state, aux
+    if kind == "mlstm":
+        h = L.apply_norm(cfg.norm, p.norm, x)
+        y, state = SSM.apply_mlstm(p.cell, h, cfg, state)
+        return x + y, state, zero_aux(x.device)
+    if kind == "slstm":
+        h = L.apply_norm(cfg.norm, p.norm, x)
+        y, state = SSM.apply_slstm_cell(p.cell, h, cfg, state)
+        x = x + y
+        h2 = L.apply_norm(cfg.norm, p.ff_norm, x)
+        return x + SSM.slstm_ffn(p.cell, h2, cfg), state, zero_aux(x.device)
+    raise ValueError(kind)
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
@@ -304,30 +362,45 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
 # decode (serve path)
 # ===========================================================================
 
+# a recurrent block kind's state and its initial value
+_STATES = {"mamba": (SSM.MambaState, SSM.init_mamba_state),
+           "mlstm": (SSM.MLSTMState, SSM.init_mlstm_state),
+           "slstm": (SSM.SLSTMState, SSM.init_slstm_state)}
+
+
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device="cuda") -> List[Params]:
-    """One empty ring cache per layer, in layer order."""
+    """One decode cache per layer, in layer order: an empty ring cache
+    for an attention layer, the initial state's fields for a recurrent
+    one."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    sizes = []
-    for pos in range(cfg.group_size):
+    caches = []
+    for li in range(cfg.n_layers):
+        pos = li % cfg.group_size
+        kind = cfg.block_kind(pos)
+        if kind != "attn":
+            caches.append(_STATES[kind][1](cfg, batch, dev)._asdict())
+            continue
         # a position's layers may mix local/global across groups (llama4):
         # size for the largest receptive field among them
         has_global = any(cfg.layer_is_global_attn(g * cfg.group_size + pos)
                          for g in range(cfg.n_groups))
-        sizes.append(A.cache_size_for(cfg, seq_len, has_global))
-    return [A.init_kv_cache(cfg, batch, sizes[li % cfg.group_size], dev)
-            for li in range(cfg.n_layers)]
+        caches.append(A.init_kv_cache(
+            cfg, batch, A.cache_size_for(cfg, seq_len, has_global), dev))
+    return caches
 
 
 def _block_decode(p: Block, cache: Params, x: torch.Tensor, kind: str,
                   cfg: ModelConfig, pos: int, is_global: bool):
+    # an MoE layer routes the step's B tokens as one pool
     if kind != "attn":
-        raise _unported(f"the {kind!r} block")
+        x, state, _ = _recurrent_block(p, x, kind, cfg,
+                                       _STATES[kind][0](**cache))
+        return x, state._asdict()
     h = L.apply_norm(cfg.norm, p.attn_norm, x)
     y, cache = A.decode_attend(p.attn, h, cache, pos, cfg,
                                is_global=is_global, use_rope=not is_global)
-    # an MoE layer routes the step's B tokens as one pool
     return _apply_mlp_or_moe(p, x + y, cfg)[0], cache
 
 

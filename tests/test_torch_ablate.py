@@ -31,6 +31,7 @@ from repro_torch.kernels.sched_select import kernel as tkernel
 from repro_torch.kernels.sched_select import ops as tops
 from repro_torch.tune import profile
 from torch_parity import KW, batch_case, grid_case, port_batch
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 POLICIES = tuple(tkernel.POLICY_CODES)
 LEVELS = tkernel.ABLATE_LEVELS

@@ -25,6 +25,7 @@ from repro_torch.core import statlog as tstatlog
 from repro_torch.core.policies import PolicyConfig
 from repro_torch.core.policy_core import ROW_EST, ROW_EWMA, ROW_LOADS, \
     ROW_PROBS
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 T, M, R, WIN, DT = 4, 37, 250, 60, 0.04
 

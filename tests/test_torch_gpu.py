@@ -9,7 +9,10 @@ hold against the JAX package).  Flash attention: 2e-5 in float32 and
 path on the card against the same parameters on the CPU.  Training: the
 reduced train steps on the card against the CPU to
 tests/test_torch_train.py's tolerances (the MoE configurations' too, and
-`apply_moe` card against CPU), the flash route's refusal under
+`apply_moe` card against CPU), the state-space and recurrent models
+(reduced jamba and xlstm) card against CPU within 1e-4 of the largest
+value, the chunkwise mLSTM against the sequential one on the card and
+jamba's bf16 prefill through the wgmma kernel, the flash route's refusal under
 autograd, and a resume on the card from a checkpoint.  The contract
 checker with its SASS layer (it needs the CUDA toolkit).  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
@@ -1007,6 +1010,155 @@ def test_apply_moe_on_card_matches_cpu(n_experts, top_k, cuda_device):
     assert (got.cpu() - want).abs().max().item() < 1e-4
     for g, w in zip(gaux[:2], waux[:2]):
         assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w))
+
+
+# -- state-space and recurrent blocks (models/ssm.py) ------------------------
+
+# (arch, ssm.chunk replaced by, or None): chunk 8 sends xlstm's
+# forward_train through the chunkwise mLSTM at S = 24
+SSM_CASES = {"jamba": ("jamba-v0.1-52b", None),
+             "xlstm": ("xlstm-1.3b", None),
+             "xlstm-chunk8": ("xlstm-1.3b", 8)}
+
+
+def _ssm_cfg(case, compute_dtype="float32"):
+    arch, chunk = SSM_CASES[case]
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype=compute_dtype)
+    if chunk is not None:
+        cfg = dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+    return cfg
+
+
+def _within(got, want, tol=1e-4) -> bool:
+    """Within ``tol`` of the largest value of ``want`` (at least 1)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() <= tol * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("case", sorted(SSM_CASES))
+def test_ssm_reduced_on_card_matches_cpu(case, cuda_device):
+    """The reduced jamba / xlstm in float32 compute on the card against
+    the same parameters and prompts on the CPU: `forward_train`, every
+    `forward_prefill` cache field and the logits of 4 decode steps within
+    1e-4 of the largest value; jamba's prefill launches the SIMT flash
+    kernel once (its one attention layer, f32 operands), xlstm's none."""
+    cfg = _ssm_cfg(case)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 24)))
+    n_attn = cfg.group_pattern.count("attn") * cfg.n_groups
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = T.init_lm(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").to(dev)
+        toks = prompts.to(dev)
+        before = dict(fkernel.LAUNCHES)
+        with torch.no_grad():
+            train = T.forward_train(params, {"tokens": toks}, cfg)
+        logits, caches = T.forward_prefill(
+            params, {"tokens": toks},
+            dataclasses.replace(cfg, use_pallas_attn=True), cache_len=28)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert fkernel.LAUNCHES == dict(
+                before, flash_attention_simt=before["flash_attention_simt"]
+                + n_attn)
+        tok, steps = torch.argmax(logits[:, -1:], dim=-1), []
+        for i in range(4):
+            lg, caches = T.decode_step(params, caches, tok, 24 + i, cfg)
+            steps.append(lg)
+            tok = torch.argmax(lg, dim=-1)
+        out[dev] = (train, logits, caches, torch.cat(steps, dim=1))
+    (th, lh, ch, dh), (tc, lc, cc, dc) = out["cpu"], out["cuda"]
+    assert _within(tc, th) and _within(lc, lh) and _within(dc, dh)
+    for li, (a, b) in enumerate(zip(cc, ch)):
+        assert set(a) == set(b)
+        for name in b:
+            assert a[name].device.type == "cuda"
+            assert _within(a[name], b[name]), (li, name)
+
+
+@pytest.mark.parametrize("arch,steps", [("jamba-v0.1-52b", 3),
+                                        ("xlstm-1.3b", 1)])
+def test_ssm_train_steps_on_card_match_cpu(arch, steps, cuda_device):
+    """The reduced jamba / xlstm in float32 compute, ``steps`` train steps
+    on the card against the CPU: the loss to 1e-5 and the grad norm to
+    1e-4 relative, the parameters to 2·sum(lr).  Adam's normalized update
+    turns rounding-level differences in gradients that nearly cancel into
+    parameter differences of a fraction of lr (jamba's third step at seq
+    64 gave grad norms 1.44e-5 apart on an H100 and its host's CPU); xlstm
+    takes one step (tests/test_torch_ssm.py::test_train_step_matches_jax
+    says why)."""
+    from repro_torch.train import OptConfig, make_train_step
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    states = {d: _fresh_train_state(cfg, d) for d in ("cuda", "cpu")}
+    lr_sum = 0.0
+    for i in range(steps):
+        metrics = {}
+        for d in states:
+            states[d], metrics[d] = step(states[d], _train_batch(cfg, i, d))
+        for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+            got, want = float(metrics["cuda"][k]), float(metrics["cpu"][k])
+            assert abs(got - want) <= rtol * abs(want), (i, k)
+        lr_sum += float(metrics["cpu"]["lr"])
+    got = states["cuda"].params.state_dict()
+    for k, want in states["cpu"].params.state_dict().items():
+        assert (got[k].cpu() - want).abs().max().item() <= 2 * lr_sum, k
+
+
+def test_mlstm_chunkwise_on_card_matches_sequential(cuda_device):
+    """`mlstm_chunkwise` (chunk 64) against `mlstm_sequential` on the card
+    in float32, B 2, S 256, H 4, hd 256, from a finite state: the outputs
+    and the final state within 1e-4 of their largest values."""
+    from repro_torch.models import ssm as SSM
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, h, hd = 2, 256, 4, 256
+    rnd = lambda *shape: torch.randn(shape, generator=gen,
+                                     device=cuda_device)
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, h, hd), rnd(b, s, h, hd)
+    li = rnd(b, s, h)
+    lf = torch.nn.functional.logsigmoid(rnd(b, s, h) + 3)
+    state = SSM.MLSTMState(rnd(b, h, hd, hd), rnd(b, h, hd), rnd(b, h))
+    yc, sc = SSM.mlstm_chunkwise(q, k, v, li, lf, state, 64)
+    ys, ss = SSM.mlstm_sequential(q, k, v, li, lf, state)
+    assert yc.device.type == "cuda"
+    assert _within(yc, ys)
+    assert all(_within(a, w) for a, w in zip(sc, ss))
+
+
+def test_jamba_bf16_prefill_on_card_takes_wgmma(cuda_device, monkeypatch):
+    """The reduced jamba in bf16 compute on the card: the prefill's one
+    attention layer goes through the wgmma kernel (no RoPE, full causal,
+    GQA 2), once, and within 2e-2 of the plain version on the same q, k
+    and v."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", reduced=True),
+                              use_pallas_attn=True)
+    params = T.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, device=cuda_device)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (2, 200))).to(cuda_device)
+    kernel, errs = fops.flash_attention, []
+
+    def held(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        errs.append((out.float() - flash_attention_plain(q, k, v, **kw)
+                     .float()).abs().max().item())
+        return out
+
+    monkeypatch.setattr(fops, "flash_attention", held)
+    before = dict(fkernel.LAUNCHES)
+    with torch.no_grad():
+        logits = T.forward_train(params, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    assert fkernel.LAUNCHES == dict(
+        before, flash_attention_wgmma=before["flash_attention_wgmma"] + 1)
+    assert len(errs) == 1 and errs[0] <= 2e-2
+    assert bool(torch.isfinite(logits.float()).all())
 
 
 def test_flash_route_under_grad_raises_on_card(cuda_device):

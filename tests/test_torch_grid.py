@@ -29,6 +29,7 @@ from repro_torch.kernels.sched_select import kernel as tkernel
 from repro_torch.kernels.sched_select import ops as tops
 from torch_parity import KW, GRID_CASES, assert_grid_outputs, grid_case, \
     port_batch
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 
 @pytest.mark.parametrize("c,ct", [(5, 5), (7, 2), (40, 32), (64, 32)])

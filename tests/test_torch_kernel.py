@@ -26,6 +26,7 @@ from repro.kernels.sched_select.ref import \
 from repro_torch.kernels.sched_select import kernel as tkernel
 from torch_parity import (BATCH_CASES, KW, assert_stream_outputs,
                           batch_case, port_batch)
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 
 def _case_jax(t, m, n_win, win, seed):

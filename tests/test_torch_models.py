@@ -39,10 +39,13 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import make_prefill_step
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 ARCHS = ["gemma-2b", "stablelm-1.6b", "h2o-danube-3-4b"]
-# the MoE architectures: tests/test_torch_moe.py
-PORTED = ARCHS + ["mixtral-8x22b", "llama4-scout-17b-a16e"]
+# the MoE architectures: tests/test_torch_moe.py; the state-space and
+# recurrent ones: tests/test_torch_ssm.py
+PORTED = ARCHS + ["mixtral-8x22b", "llama4-scout-17b-a16e",
+                  "jamba-v0.1-52b", "xlstm-1.3b"]
 B, S, GEN = 2, 24, 4       # S past danube's reduced window (16)
 F32_TOL, BF16_TOL = 1e-4, 0.1
 
@@ -101,8 +104,7 @@ def test_model_config_from_fields_carries_every_config(arch):
             get_config(arch)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-1.3b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_blocks_raise_naming_roadmap(arch):
     cfg = interop.model_config_from_fields(
         dataclasses.asdict(jax_get_config(arch, reduced=True)))
@@ -222,9 +224,17 @@ def test_decode_attend_masks_ring_slots_past_the_window():
                                    torch.from_numpy(x1), port_cache(), pos,
                                    tcfg)
     assert _err(got, want) < F32_TOL
-    for name in ("k", "v", "slot_pos"):
-        np.testing.assert_array_equal(gcache[name].numpy(),
-                                      np.asarray(wcache[name]))
+    # slot positions and the slots the step did not write are copies:
+    # bit-equal; the written slot's k and v come from a matrix product
+    # in each framework: F32_TOL, as every prefill cache below
+    np.testing.assert_array_equal(gcache["slot_pos"].numpy(),
+                                  np.asarray(wcache["slot_pos"]))
+    slot = pos % size
+    kept = np.arange(size) != slot
+    for name in ("k", "v"):
+        g, w = gcache[name].numpy(), np.asarray(wcache[name])
+        np.testing.assert_array_equal(g[:, kept], w[:, kept])
+        assert _err(g[:, slot], w[:, slot]) < F32_TOL, name
     # the new token took the oldest slot; size - win slots lie past the window
     assert int((pos - gcache["slot_pos"] >= win).sum()) == size - win
     unmasked, _ = TA.decode_attend(

@@ -24,6 +24,7 @@ from repro_torch.core import policy_core as tpc
 from repro_torch.kernels.threefry import kernel as tkernel
 from repro_torch.kernels.threefry import ops as tops
 from repro_torch.kernels.threefry.ref import threefry2x32
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 SEEDS = [0, 1, 2024, -3, 2 ** 31 + 7, 2 ** 40 + 11]
 

@@ -23,6 +23,7 @@ from repro.core import policy_core as jpc
 from repro.core import statlog as jstatlog
 from repro_torch.core import policy_core as tpc
 from repro_torch.core import statlog as tstatlog
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 M_SIZES = (17, 37)
 

@@ -52,6 +52,7 @@ from repro_torch.core.policies import PolicyConfig
 from repro_torch.core.statlog import SchedState
 from repro_torch.launch import mesh as tmesh
 from repro_torch.parallel import sweep as tsweep
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).resolve().parent / "torch_sweep_worker.py"

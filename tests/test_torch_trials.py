@@ -35,6 +35,7 @@ from repro.core.policies import PolicyConfig as JPolicyConfig
 from repro_torch import random
 from repro_torch.core import simulate as tsim
 from repro_torch.core.policies import PolicyConfig
+from torch_jax_release import release_compiled_programs  # noqa: F401
 
 POLICIES = ("rr", "mlml", "trh", "nltr", "two_choice", "ect")
 SMALL = dict(n_servers=37, n_requests=250, n_trials=4, window_size=60,
