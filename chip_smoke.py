@@ -8,8 +8,9 @@ From the root of a checkout, with one CUDA card visible.  With
 tree and of the checkout at DIR, alternately (`compare_walls`);
 ``--host-path`` runs the host path's phase alone, ``--train-path``
 the training phase alone, ``--contract`` the contract checker's
-phase alone, ``--moe`` the Mixture-of-Experts phase alone and ``--ssm``
-the state-space and recurrent phase alone;
+phase alone, ``--moe`` the Mixture-of-Experts phase alone, ``--ssm``
+the state-space and recurrent phase alone and ``--encdec`` the
+encoder-decoder phase alone (with the global-memory domain leg);
 ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
@@ -52,8 +53,14 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    both forms and the merge at M_pad 2048 with window 2048 and M_pad 4096
    with window 1024 for the six engine policies, each shape's shared
    memory against the card's opt-in budget, the 1-D kernel's time there,
-   `sched_select` at N = 2048, and an input past the budget refused
-   before launch, its message printed; and flash
+   `sched_select` at N = 2048; then the global-memory instance
+   (`check_global_domain`): every policy's 1-D (levels 0-3) and 2-D
+   kernel bit for bit against the shared instance at a shape both take,
+   both forms and the merge against their plain versions at M_pad 8192
+   with window 1024 and M_pad 16384 with window 512 (past every block's
+   shared memory) for the six engine policies, counts zeroed before and
+   read after, the workspace bytes and the 1-D kernel's time at T = 4,
+   and the shared instance's §4 ect queued time; and flash
    attention at the JAX tests' six cases, non-causal, tile sweeps,
    ``is_global``, gemma-2b's serving shape and danube-like shapes (head
    dim 120, GQA 4, sliding window, ragged S), each f32 case also in
@@ -194,7 +201,22 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    cache field and 4 decode steps' logits within 1e-4 of the largest
    value, and 3 train steps (jamba at seq 64; xlstm 1 at seq 512);
    (d) the chunkwise mLSTM against the sequential one at xlstm's full
-   widths (B 1, S 512, H 4, hd 1024, chunk 128) on the card;
+   widths (B 1, S 512, H 4, hd 1024, chunk 128) on the card; jamba's
+   three train steps again from parameters moved by 1e-7 relative (the
+   grad norm's move beside the card/CPU gap); then the encoder-decoder
+   phase (`models/encdec.py`; `--encdec` alone): (a) whisper-tiny at
+   full size (random f32 weights from seed 0, bf16 compute) served
+   through `serve.generate`, batch 16 x 1,500 stub frames, prompt 224,
+   32 tokens, counts zeroed before and read after (one wgmma launch per
+   decoder layer, nothing else), the prefill's encoder, forward (each
+   flash call held to its plain version) and replay timed alone, its
+   logits against the `attention_ref` route in f32 and bf16, a decode
+   step by torch.profiler; (b) the wgmma kernel at whisper's heads
+   (B 16, H 6/6, hd 64, causal; S 224 and 448) against the plain
+   version, queued beside causal SDPA, with its bound and blocks per SM;
+   (c) 6 train steps at 16 x 224 with the frames (loss falling, step
+   time, tokens/s, peak memory, the optimizer's share; no kernel
+   launched, counted) and the reduced twin's 3 steps card against CPU;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -260,6 +282,7 @@ from repro_torch.kernels.sched_select import ref as sref  # noqa: E402
 from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
 from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import encdec as E  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -508,16 +531,21 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
 # -- kernels against their plain versions ------------------------------------
 
 
-# a stream kernel instantiation's mangled name: <policy, lanes, level>
-INSTANCE = re.compile(r"sched_stream_kernelILi(\d)ELi(\d+)ELi(\d)E")
+# a stream kernel instantiation's mangled name: <policy, lanes, level,
+# instance (0 shared memory, 1 global memory)>
+INSTANCE = re.compile(r"sched_stream_kernelILi(\d)ELi(\d+)ELi(\d)ELi(\d)E")
+# the stream kernel's instantiations of one policy: (lanes, level) in
+# each instance
+LANE_LEVELS = [(16, 0)] + [(32, lv) for lv in LEVELS]
 
 
 def stream_kernel_table() -> dict:
     """Print every stream kernel instantiation's registers, stack frame
     and spill bytes (ptxas) and SASS instruction and FFMA counts, by
-    policy: level 0 with 16 and 32 lanes a stream, the ablate levels 1-3
-    with 32.  Returns ``sched_stream.cu``'s SASS functions by mangled
-    name (`cudacheck.read_sass`)."""
+    policy and instance (shared, then global memory): level 0 with 16 and
+    32 lanes a stream, the ablate levels 1-3 with 32.  Returns
+    ``sched_stream.cu``'s SASS functions by mangled name
+    (`cudacheck.read_sass`)."""
     props, cur = {}, None
     for line in _build.build_log(skernel.SOURCE).splitlines():
         m = INSTANCE.search(line)
@@ -543,14 +571,15 @@ def stream_kernel_table() -> dict:
           "registers / stack bytes / spill bytes / SASS instructions / "
           "FFMA")
     for name, code in skernel.POLICY_CODES.items():
-        cells = []
-        for lanes, level in [(16, 0)] + [(32, lv) for lv in LEVELS]:
-            pr = props.get((code, lanes, level), {})
-            fn = sass[(code, lanes, level)]
-            cells.append(f"{lanes}L/L{level} {pr.get('regs')}/"
-                         f"{pr.get('stack')}/{pr.get('spill')}/"
-                         f"{fn.instructions}/{fn.ffma}")
-        print(f"    {name:>10s}: " + ", ".join(cells))
+        for gmem, label in ((0, "shared"), (1, "global")):
+            cells = []
+            for lanes, level in LANE_LEVELS:
+                pr = props.get((code, lanes, level, gmem), {})
+                fn = sass[(code, lanes, level, gmem)]
+                cells.append(f"{lanes}L/L{level} {pr.get('regs')}/"
+                             f"{pr.get('stack')}/{pr.get('spill')}/"
+                             f"{fn.instructions}/{fn.ffma}")
+            print(f"    {name:>10s} {label}: " + ", ".join(cells))
     return funcs
 
 
@@ -570,7 +599,7 @@ def check_contract(funcs: dict) -> None:
             print(f"    {f.format()}")
     stream = [fn for fn in funcs.values() if INSTANCE.search(fn.mangled)]
     merge = [fn for fn in funcs.values() if fn.name == "client_merge_kernel"]
-    if len(stream) != 8 * (1 + len(LEVELS)) or len(merge) != 1:
+    if len(stream) != 2 * 8 * len(LANE_LEVELS) or len(merge) != 1:
         fail(f"the SASS layer read {len(stream)} stream kernel "
              f"instantiations and {len(merge)} merge kernels")
     ffma = sorted(fn.ffma for fn in stream)
@@ -1156,8 +1185,174 @@ def run_gloo_worlds(cfgs, pols, unsharded, dev, card):
 
 # (M, window): M_pad 2048 with window 2048, M_pad 4096 with window 1024
 DOMAIN_SHAPES = ((2000, 2048), (4000, 1024))
-# a stream past every policy's budget on the H100: M_pad 8192, window 1024
+# streams past every policy's shared-memory budget on the H100, which the
+# global-memory instance runs: M_pad 8192 with window 1024, M_pad 16384
+# with window 512
 OVER_BUDGET = (8142, 1024)
+GLOBAL_SHAPES = (OVER_BUDGET, (16334, 512))
+# the shared instance's §4 ect queued time before the global instance
+# was added (PERF.md's kernel table, NVIDIA H100 80GB HBM3 at 700 W)
+SHARED_ECT_MS = (1.3309, 1.3461)
+
+
+def stream_bound(t_, n_, m_, n_win):
+    """The least time of ect's function over T streams of N requests, M
+    real servers and W windows: bytes in and out once over HBM — int32/
+    f32/int32 request blocks, (T, 4, M) tables, (T, W, M) rates, seeds;
+    choices, latencies, tables, window loads, metrics — and its float32
+    operations (per request: score add+div, argmin compare, probs add, est
+    max+select on every lane; per window: renorm and drain; per stream: 48
+    bisection passes over N latencies).  This counts the function's work,
+    not the kernel's: the kernel skips the per-request est rewrite (it
+    keeps the max incrementally and derives est where a score reads it),
+    but the function defines est on every lane after every request, so
+    the count stays.  Returns (ms, bound by, bytes, ops)."""
+    bytes_moved = 4 * (3 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_ + t_
+                       + 2 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_
+                       + t_ * policy_core.N_METRICS)
+    ops = t_ * (n_ * 6 * m_ + n_win * 5 * m_ + 48 * n_ * 2)
+    return (*bound(bytes_moved, ops), bytes_moved, ops)
+
+
+def check_global_domain(dev, card):
+    """(d) The global-memory instance: first every policy's 1-D kernel
+    (levels 0-3) and 2-D kernel bit for bit against the shared instance at
+    a shape that fits shared memory (`skernel._launch_streams` with
+    ``instance="global"``); then at
+    `GLOBAL_SHAPES`, which no block's shared memory holds, both forms and
+    the merge against their plain versions for the six engine policies
+    (the 1-D form at T = 2; the 2-D form at T = 1, C = 3 with a phantom
+    client, the merge as mean and as sum in turn) through the user's
+    entry points, the launch counts zeroed just before and read just
+    after (the launches of the first comparison, through the private
+    `skernel._launch_streams`, are not counted); the instance each shape
+    takes, its workspace bytes and the 1-D
+    kernel's time at T = 4; last, the shared instance's queued time for
+    ect at the §4 operands.  Returns (the largest differences (1-D, 2-D,
+    merge), the times by shape and policy, the global instances' entries
+    of the ``kernels`` line)."""
+    t0 = time.perf_counter()
+    t, m, n_win, win = 5, 300, 3, 40
+    args = sops.pad_operands(*stream_operands(t, m, n_win, win, "init",
+                                              7400, dev))
+    gargs = [x.reshape(2, 3, *x.shape[1:]) for x in sops.pad_operands(
+        *stream_operands(6, m, n_win, win, "init", 7401, dev))[:5]]
+    gargs.append(sops.pad_operands(*stream_operands(
+        2, m, n_win, win, "init", 7402, dev))[5])
+    def both(ops, **kw):
+        """The shared and the global instance's outputs on ``ops``."""
+        runs = [skernel._launch_streams(*ops, instance=inst, **kw)
+                for inst in (None, "global")]
+        if [r[0] for r in runs] != ["shared", "global"]:
+            fail(f"the instances ran as {[r[0] for r in runs]}")
+        return [r[1] for r in runs]
+
+    for policy in BODY_POLICIES:
+        kw = dict(KW, alpha=0.25, n_servers=m, window_size=win,
+                  policy=policy)
+        for level in LEVELS:
+            a, b = both(args, form="sched_stream", lead=(t,), ablate=level,
+                        **kw)
+            if not all(same_bits(x, y) for x, y in zip(a, b)):
+                fail(f"the global instance differs from the shared one "
+                     f"({policy}, level {level})")
+        a, b = both(gargs, form="sched_stream_grid", lead=(2, 3), **kw)
+        if not all(same_bits(x, y) for x, y in zip(a, b)):
+            fail(f"the global 2-D instance differs from the shared one "
+                 f"({policy})")
+    print(f"global domain: the global instance equals the shared one bit "
+          f"for bit at T={t} M={m} W={n_win} win={win}, all eight "
+          "policies, 1-D levels 0-3 and the 2-D form")
+
+    errs, times = [0.0, 0.0, 0.0], {}
+    zero_counts()
+    for i, (m, win) in enumerate(GLOBAL_SHAPES):
+        m_pad = sops._pad_servers(m)
+        for j, policy in enumerate(KERNEL_POLICIES):
+            errs[0] = max(errs[0], check_case(2, m, 1, win, "init", policy,
+                                              7500 + 10 * i + j, dev))
+            e_s, e_m = check_grid_case((1, 3, m, 1, win, 2, 1), policy,
+                                       j % 2 == 0, 7600 + 10 * i + j, dev)
+            errs[1], errs[2] = max(errs[1], e_s), max(errs[2], e_m)
+    counts = all_counts()
+    n_cases = len(GLOBAL_SHAPES) * len(KERNEL_POLICIES)
+    want = {k: n_cases * int(k in ("sched_stream_global",
+                                   "sched_stream_grid_global",
+                                   "client_merge"))
+            for k in but_threefry(counts)}
+    if but_threefry(counts) != want:
+        fail(f"the global domain's checks launched {counts}, expected "
+             f"{want}")
+    print(f"global domain: launches {but_threefry(counts)}")
+
+    entries = {}
+    for i, (m, win) in enumerate(GLOBAL_SHAPES):
+        m_pad = sops._pad_servers(m)
+        for j, policy in enumerate(KERNEL_POLICIES):
+            need, budget = skernel.stream_budget(policy, m_pad, win)
+            inst, ws = skernel.check_stream_domain(policy, m_pad, win, 4)
+            occ = {form: skernel.stream_occupancy(form, policy, m, m_pad,
+                                                  win)
+                   for form in ("sched_stream", "sched_stream_grid")}
+            if inst != "global" or {o[3] for o in occ.values()} != \
+                    {"global"}:
+                fail(f"M_pad={m_pad} window {win} {policy} took the "
+                     f"{inst} instance")
+            args = stream_operands(4, m, 1, win, "init", 7700 + j, dev)
+            kw = dict(KW, n_servers=m, window_size=win, policy=policy)
+            ms = timed_ms(lambda: sops.sched_stream_batch(*args, **kw),
+                          reps=5)
+            times[f"M_pad={m_pad},window={win},{policy}"] = ms
+            print(f"global domain M={m} (M_pad {m_pad}) window {win} "
+                  f"{policy:>10s}: {inst} instance, {need} bytes a stream "
+                  f"past the {budget} of shared memory a block, workspace "
+                  f"{ws} bytes at T=4; 1-D kernel {ms:.4f} ms a launch at "
+                  f"T=4 on {card}; blocks per SM 1-D "
+                  f"{occ['sched_stream'][0]}, 2-D "
+                  f"{occ['sched_stream_grid'][0]} of "
+                  f"{occ['sched_stream_grid'][1]} streams")
+            if policy != "ect" or i:
+                continue
+            # the kernels line's entries: ect at OVER_BUDGET, the 1-D form
+            # at T = 4 and the 2-D form at T = 1, C = 3
+            pargs = sops.pad_operands(*args)
+            pkw = dict(kw, alpha=0.25)
+            plain_ms = once_ms(lambda: sref.sched_stream_batch_ref(
+                *pargs, **pkw))
+            b_ms, b_by, _, _ = stream_bound(4, win, m, 1)
+            entries["sched_stream_global"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                queued_ms=steady_ms(queued_ms, lambda: skernel
+                                    .sched_stream_call(*pargs, **pkw))[0])
+            g = stream_operands(3, m, 1, win, "init", 7800, dev)
+            gk = [x.reshape(1, 3, *x.shape[1:]) for x in
+                  sops.pad_operands(*g)[:5]]
+            gk.append(sops.pad_operands(*g)[5][:1])
+            g_ms = timed_ms(lambda: skernel.sched_stream_grid_streams(
+                *gk, **pkw), reps=5)
+            g_plain = once_ms(lambda: sref.sched_stream_grid_streams_ref(
+                *gk, **pkw))
+            gb_ms, gb_by, _, _ = stream_bound(3, win, m, 1)
+            entries["sched_stream_grid_global"] = dict(
+                ms=g_ms, plain_ms=g_plain, bound_ms=gb_ms, bound_by=gb_by)
+            print(f"global domain ect at M_pad {m_pad} window {win} on "
+                  f"{card}: 1-D T=4 {ms:.4f} ms back to back, "
+                  f"{entries['sched_stream_global']['queued_ms']:.4f} ms "
+                  f"queued, plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by}); 2-D T=1 C=3 {g_ms:.4f} ms (plain "
+                  f"{g_plain:.2f} ms), bound {gb_ms:.5f} ms ({gb_by})")
+
+    cfg, log = paper_cfgs()["shared_log"]
+    kargs, kkw = main_path_operands(cfg, log, engine_pols()["ect"], dev,
+                                    "stream_batch")
+    q = steady_ms(queued_ms, lambda: skernel.sched_stream_call(*kargs,
+                                                               **kkw))
+    print(f"global domain: the shared instance's §4 ect 1-D kernel on "
+          f"{card}: {q[0]:.4f} [{q[1]:.4f}-{q[2]:.4f}] ms queued{held_note(q)}"
+          f", against {SHARED_ECT_MS[0]}-{SHARED_ECT_MS[1]} ms before the "
+          "global instance (PERF.md)")
+    print(f"global domain phase: {time.perf_counter() - t0:.1f} s")
+    return errs, times, entries, counts
 
 
 def check_domain(dev, card):
@@ -1166,9 +1361,9 @@ def check_domain(dev, card):
     their plain versions for the six engine policies (the 1-D form at
     T = 2; the 2-D form at T = 1, C = 3 with a phantom client, the merge
     as mean and as sum in turn), each shape's budget and launch shape, and
-    the 1-D kernel timed at T = 4; `sched_select` at N = 2048; an input
-    past the budget refused before launch.  Returns the largest
-    differences (1-D, 2-D, merge) and the times by shape and policy."""
+    the 1-D kernel timed at T = 4; `sched_select` at N = 2048.  Returns
+    the largest differences (1-D, 2-D, merge) and the times by shape and
+    policy.  Inputs past the budget: `check_global_domain`."""
     errs, times = [0.0, 0.0, 0.0], {}
     for i, (m, win) in enumerate(DOMAIN_SHAPES):
         m_pad = sops._pad_servers(m)
@@ -1187,6 +1382,9 @@ def check_domain(dev, card):
             ms = timed_ms(lambda: sops.sched_stream_batch(*args, **kw),
                           reps=5)
             times[f"M_pad={m_pad},window={win},{policy}"] = ms
+            if {o[3] for o in occ.values()} != {"shared"}:
+                fail(f"M_pad={m_pad} window {win} {policy} left the shared "
+                     "instance")
             print(f"domain M={m} (M_pad {m_pad}) window {win} {policy:>10s}:"
                   f" {need} of {budget} bytes of shared memory a stream; "
                   f"1-D kernel {ms:.4f} ms a launch at T=4 on {card}; "
@@ -1209,19 +1407,6 @@ def check_domain(dev, card):
             fail(f"sched_select at N={n} disagrees with its plain version")
     print(f"domain sched_select C={c} N={n} M={m}: bit-exact, both "
           "policies")
-    m, win = OVER_BUDGET
-    args = stream_operands(2, m, 1, win, "init", 7300, dev)
-    before = dict(skernel.LAUNCHES)
-    try:
-        sops.sched_stream_batch(*args, **dict(KW, n_servers=m,
-                                               window_size=win,
-                                               policy="ect"))
-    except ValueError as err:
-        print(f"domain M={m} window {win}: refused before launch: {err}")
-    else:
-        fail(f"M={m}, window {win} launched past the shared-memory budget")
-    if skernel.LAUNCHES != before:
-        fail("the refused input launched a kernel")
     return errs, times
 
 
@@ -1819,7 +2004,7 @@ def time_stream_policies(form, launch, operands, card):
     for p, (kargs, kkw) in operands.items():
         n = kargs[0].shape[-1]
         n_streams = kargs[0].numel() // n
-        blocks_sm, spb, smem = skernel.stream_occupancy(
+        blocks_sm, spb, smem, _ = skernel.stream_occupancy(
             form, p, kkw["n_servers"], kargs[3].shape[-1],
             kkw["window_size"])
         waves = -(-(-(-n_streams // spb)) // (blocks_sm * n_sm))
@@ -1842,24 +2027,10 @@ def time_shared_log(cfg, log, pols, dev, card):
     wall_ms, stage_ms = stage_split(cfg, log, pols["ect"])
 
     # least time for the same work, over the n_servers real lanes (the
-    # padding to 128 lanes is the kernel's choice, not the function's):
-    # bytes in and out once over HBM — int32/f32/int32 request blocks,
-    # (T, 4, M) tables, (T, W, M) rates, seeds; choices, latencies, tables,
-    # window loads, metrics — and the float32 operations of ect (per
-    # request: score add+div, argmin compare, probs add, est max+select on
-    # every lane; per window: renorm and drain; per stream: 48 bisection
-    # passes over N latencies).  This counts the function's work, not the
-    # kernel's: the kernel skips the per-request est rewrite (it keeps the
-    # max incrementally and derives est where a score reads it), but the
-    # function defines est on every lane after every request, so the
-    # count stays.
+    # padding to 128 lanes is the kernel's choice, not the function's)
     t_, n_ = kargs[0].shape
     m_, n_win = cfg.n_servers, kargs[5].shape[1]
-    bytes_moved = 4 * (3 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_ + t_
-                       + 2 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_
-                       + t_ * policy_core.N_METRICS)
-    ops = t_ * (n_ * 6 * m_ + n_win * 5 * m_ + 48 * n_ * 2)
-    bound_ms, bound_by = bound(bytes_moved, ops)
+    bound_ms, bound_by, bytes_moved, ops = stream_bound(t_, n_, m_, n_win)
     reqs = cfg.n_trials * cfg.n_requests
     print(f"timing shared_log, T={t_} N={n_} M={m_} on {card}:")
     times = time_stream_policies("sched_stream", skernel.sched_stream_call,
@@ -2468,13 +2639,14 @@ def fresh_on(cfg, dev, seed=0):
 
 def run_train_parity(card, arch=TRAIN_ARCH, label="train (b)", cfg=None,
                      steps=TRAIN_PARITY_STEPS, gnorm_rtol=TRAIN_LOSS_RTOL,
-                     seq=TRAIN_SEQ):
+                     seq=TRAIN_SEQ, batch_fn=train_batch):
     """(b): the reduced gemma-2b (or ``arch``, or ``cfg``) in float32
     compute, 3 (or ``steps``) train steps at batch 4 x 512 (or ``seq``) on
     the card against the same steps on the CPU, held to the CPU tests'
     tolerances (loss 1e-5 and grad norm ``gnorm_rtol`` relative,
     parameters 2·sum(lr)); an MoE configuration's terms are printed
-    beside."""
+    beside.  ``batch_fn(cfg, step, device, seq)`` makes each step's
+    batch."""
     cfg = cfg or dataclasses.replace(get_config(arch, reduced=True),
                                      compute_dtype="float32")
     step = tsteps.make_train_step(cfg, TRAIN_OPT)
@@ -2482,11 +2654,12 @@ def run_train_parity(card, arch=TRAIN_ARCH, label="train (b)", cfg=None,
     worst, lr_sum = [0.0, 0.0], 0.0
     terms = []
     for i in range(steps):
-        card_state, mc = step(card_state, train_batch(cfg, i, seq=seq))
-        cpu_state, mh = step(cpu_state, train_batch(cfg, i, "cpu", seq))
+        card_state, mc = step(card_state, batch_fn(cfg, i, "cuda", seq))
+        cpu_state, mh = step(cpu_state, batch_fn(cfg, i, "cpu", seq))
         worst = [max(w, abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k])))
                  for w, k in zip(worst, ("loss", "grad_norm"))]
-        terms.append([(float(mc[k]), float(mh[k])) for k in MOE_TERMS])
+        terms.append([(float(mc[k]), float(mh[k])) for k in MOE_TERMS
+                      if k in mh])
         lr_sum += float(mh["lr"])
     got, want = card_state.params.state_dict(), cpu_state.params.state_dict()
     p_err = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
@@ -3319,7 +3492,11 @@ SSM_TRAIN = (("jamba-v0.1-52b", 64, TRAIN_PARITY_STEPS),
 # Adam's normalized update turns rounding-level differences in gradients
 # that nearly cancel into parameter differences of a fraction of lr:
 # jamba's third step at seq 64 gave grad norms 1.44e-5 apart on the card
-# and the CPU (its first two 1.9e-7, 7.3e-7), xlstm's first 3.51e-5
+# and the CPU (its first two 1.9e-7, 7.3e-7), xlstm's first 3.51e-5.  The
+# card's own jamba run moves its third grad norm by 1.58e-5 when the
+# parameters move by 1e-7 relative (first two 4.8e-7, 5.5e-7;
+# `ssm_gnorm_move`, NVIDIA H100 80GB HBM3 at 700 W): the card/CPU gap lies
+# inside what a rounding-level change of the inputs does
 SSM_GNORM_RTOL = 1e-4
 MLSTM_FULL = dict(b=1, s=512, h=4, hd=1024, chunk=128)
 
@@ -3515,6 +3692,49 @@ def check_ssm_parity(card):
         print(f"  ({arch} train steps, card and CPU: {sec:.2f} s)")
 
 
+def ssm_gnorm_move(card, arch="jamba-v0.1-52b", seq=64,
+                   steps=TRAIN_PARITY_STEPS):
+    """The reduced jamba's SSM_TRAIN steps (f32, seq 64) three times:
+    on the card, on the card from its parameters perturbed by 1e-7
+    relative (tests/test_torch_ssm.py's seeded perturbation, applied on
+    the CPU before the copy) and on the CPU.  Prints each step's grad
+    norm, the perturbation's relative move of it on the card and the
+    card/CPU gap, beside SSM_GNORM_RTOL.  Returns (moves, gaps)."""
+    cfg = ssm_parity_cfg(arch, None)
+    step = tsteps.make_train_step(cfg, TRAIN_OPT)
+    runs = {}
+    for name, dev, moved in (("card", "cuda", False),
+                             ("card moved", "cuda", True),
+                             ("cpu", "cpu", False)):
+        state = tsteps.init_state(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+        if moved:
+            with torch.no_grad():
+                gen = torch.Generator().manual_seed(0)
+                for p in state.params.parameters():
+                    p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+        params = state.params.to(dev)
+        state = tsteps.TrainState(params=params, opt=topt.init(params),
+                                  step=state.step.to(dev))
+        norms = []
+        for i in range(steps):
+            state, m = step(state, train_batch(cfg, i, dev, seq))
+            norms.append(float(m["grad_norm"]))
+        runs[name] = norms
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    moves = rel(runs["card moved"], runs["card"])
+    gaps = rel(runs["card"], runs["cpu"])
+    print(f"ssm (c) {cfg.name} grad norms at seq {seq} on {card}: card "
+          f"{runs['card']}, card from the parameters moved by 1e-7 relative "
+          f"{runs['card moved']}, CPU {runs['cpu']}")
+    print(f"  per step, the perturbation moves the card's grad norm by "
+          f"{[f'{x:.3g}' for x in moves]} relative; card against CPU "
+          f"{[f'{x:.3g}' for x in gaps]} (SSM_GNORM_RTOL {SSM_GNORM_RTOL:g});"
+          f" the step-{steps} gap is "
+          f"{'inside' if gaps[-1] <= moves[-1] else 'OUTSIDE'} the move")
+    return moves, gaps
+
+
 def check_mlstm_full(dev, card):
     """(d): `mlstm_chunkwise` against `mlstm_sequential` at xlstm's full
     widths (MLSTM_FULL) in float32 on the card, from the zero state, the
@@ -3563,11 +3783,298 @@ def run_ssm_path(dev, card):
         part_s.append(sec)
     zero_counts()
     part_s.append(synced_s(lambda: check_ssm_parity(card))[1])
+    ssm_gnorm_move(card)
     part_s.append(synced_s(lambda: check_mlstm_full(dev, card))[1])
     print(f"SSM phase: {time.perf_counter() - t0:.1f} s (a) {part_s[0]:.1f}"
           f" s, (b) {part_s[1]:.1f} s, (c) {part_s[2]:.1f} s, (d) "
           f"{part_s[3]:.1f} s")
     return launches, err
+
+# -- the encoder-decoder phase (models/encdec.py): whisper-tiny ---------------
+
+ENCDEC_ARCH = "whisper-tiny"
+# whisper's longest prompt (half its 448-token context), then 32 tokens
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN = 16, 224, 32
+ENCDEC_ARGS = ["--arch", ENCDEC_ARCH, "--batch", str(ENCDEC_BATCH),
+               "--prompt-len", str(ENCDEC_PROMPT), "--gen", str(ENCDEC_GEN),
+               "--seed", "0"]
+# (B, S, H, KV, hd) of the decoder's causal self attention, bf16: the
+# serve's prefill (a ragged last tile at S = 224) and whisper's context
+ENCDEC_FLASH = ((ENCDEC_BATCH, ENCDEC_PROMPT, 6, 6, 64),
+                (ENCDEC_BATCH, 448, 6, 6, 64))
+# the reduced twin's card-against-CPU steps: batch 4 x 224
+ENCDEC_PARITY_BATCH = 4
+
+
+def encdec_batch(cfg, step, device, seq=ENCDEC_PROMPT,
+                 batch=ENCDEC_PARITY_BATCH):
+    """An encoder-decoder's train batch {frames, tokens, targets}: the
+    tokens of `SyntheticTokens` and standard normal frames drawn on the
+    CPU from ``100 + step`` (so the card and the CPU see the same)."""
+    out = tdata.SyntheticTokens(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq,
+        global_batch=batch)).batch_at(step, device)
+    gen = torch.Generator().manual_seed(100 + step)
+    out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                generator=gen).to(device)
+    return out
+
+
+def encdec_replay(params, enc_out, prompts, cfg, cache_len):
+    """The prefill's ring caches: `encdec.init_caches`, then the prompt
+    replayed one token at a time, as `encdec.forward_prefill` fills them."""
+    caches = E.init_caches(params, enc_out, cfg, prompts.shape[0], cache_len)
+    for t in range(prompts.shape[1]):
+        E._decode_layers(params, caches, prompts[:, t:t + 1], t, cfg)
+    return caches
+
+
+def check_encdec_logits(params, frames, prompts, cfg, tokens):
+    """The serve's prefill logits again through the kernel and with
+    `attention_ref` in its place (`fops.flash_attention_plain`), in f32
+    compute (the SIMT kernel) and in the serve's bf16 (wgmma), held to
+    SERVE_F32_TOL and SERVE_BF16_REL_TOL of the largest f32 logit; the
+    first served token is the bf16 kernel logits' argmax."""
+    logits = {}
+    for compute in ("float32", "bfloat16"):
+        run_cfg = dataclasses.replace(cfg, compute_dtype=compute,
+                                      use_pallas_attn=True)
+        with torch.no_grad():
+            enc_out = E.encode(params, frames, run_cfg)
+            kern = E.decode_forward(params, prompts, enc_out, run_cfg)
+            with mock.patch.object(fops, "flash_attention",
+                                   fops.flash_attention_plain):
+                ref = E.decode_forward(params, prompts, enc_out, run_cfg)
+        for x in (kern, ref):
+            if x.shape != (*prompts.shape, cfg.padded_vocab) or not bool(
+                    torch.isfinite(x).all()):
+                fail(f"whisper prefill logits ({compute}) have shape "
+                     f"{tuple(x.shape)} or non-finite values")
+        logits[compute] = (kern.float(), ref.float())
+        del kern, ref, enc_out
+    (k32, r32), (k16, r16) = logits["float32"], logits["bfloat16"]
+    scale = r32.abs().max().item()
+    err32 = (k32 - r32).abs().max().item()
+    err16 = (k16 - r16).abs().max().item()
+    tol16 = SERVE_BF16_REL_TOL * scale
+    ok = err32 <= SERVE_F32_TOL and err16 <= tol16
+    print(f"  prefill logits, kernel against attention_ref: f32 compute max "
+          f"abs err {err32:.4g} (tolerance {SERVE_F32_TOL:g}), bf16 "
+          f"{err16:.4g} (tolerance {tol16:.4g} = {SERVE_BF16_REL_TOL:g} of the largest "
+          f"f32 logit {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("whisper's prefill logits through the kernel disagree with the "
+             "attention_ref route")
+    if not (torch.argmax(k16[:, -1], dim=-1).cpu().numpy()
+            == tokens[:, 0]).all():
+        fail("whisper's first served token is not the prefill logits' "
+             "argmax")
+    del logits, k32, r32, k16, r16
+    torch.cuda.empty_cache()
+
+
+def run_encdec_serve(card):
+    """(a): `serve.serve`'s run of whisper-tiny at full width and depth
+    (random f32 weights from seed 0, bf16 compute, the stub frames of
+    `serve.stub_frames`), batch 16 x 1,500 frames, prompt 224, 32 tokens,
+    through `serve.generate` with the counts zeroed just before and read
+    just after: one wgmma launch per decoder layer, no other kernel of the
+    port.  Then the prefill's parts on their own (the encoder, the
+    decoder's forward with each flash call held to its plain version, the
+    replay), the logits against the attention_ref route
+    (`check_encdec_logits`) and one decode step by torch.profiler.
+    Returns (the launch counts, the held flash calls' largest error)."""
+    args = serve.parse_args(ENCDEC_ARGS)
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params, prompts), init_s = synced_s(lambda: serve.setup(args))
+    frames = serve.stub_frames(cfg, ENCDEC_BATCH, "cuda")
+    n_tensor = sum(p.numel() for p in params.parameters())
+    zero_counts()
+    tokens, prefill_s, decode_s = serve.generate(params, prompts, cfg,
+                                                 ENCDEC_GEN, frames)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=cfg.n_layers):
+        fail(f"whisper serve launched {counts}, expected {cfg.n_layers} "
+             "flash_attention_wgmma launches and no other")
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens.cpu().numpy()
+    if gen.shape != (ENCDEC_BATCH, ENCDEC_GEN) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        fail(f"whisper serve returned tokens of shape {gen.shape} outside "
+             f"[0, {cfg.padded_vocab})")
+    tok_s = ENCDEC_BATCH * (ENCDEC_GEN - 1) / decode_s
+    print(f"encdec (a) {cfg.name} serve on {card}: {n_tensor} parameters in "
+          f"its tensors ({n_tensor * 4} bytes of f32), drawn in {init_s:.3f} "
+          f"s; batch {ENCDEC_BATCH} x {cfg.enc_seq} frames, prompt "
+          f"{ENCDEC_PROMPT}, gen {ENCDEC_GEN}: prefill {prefill_s:.4f} s, "
+          f"decode {decode_s:.4f} s ({tok_s:.2f} tok/s over "
+          f"{ENCDEC_BATCH * (ENCDEC_GEN - 1)} decoded tokens); peak memory "
+          f"{peak} bytes ({peak / 1e9:.3f} GB); launches {counts}")
+    print(f"  tokens row 0: {gen[0].tolist()}")
+
+    checked = []
+    run_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    with torch.no_grad():
+        enc_out, enc_s = synced_s(lambda: E.encode(params, frames, cfg))
+        with mock.patch.object(fops, "flash_attention", held_flash(checked)):
+            logits, fwd_s = synced_s(lambda: E.decode_forward(
+                params, prompts, enc_out, run_cfg))
+        caches, replay_s = synced_s(lambda: encdec_replay(
+            params, enc_out, prompts, cfg, ENCDEC_PROMPT + ENCDEC_GEN))
+    routes = sorted({r for r, _ in checked})
+    err = max((e for _, e in checked), default=0.0)
+    if len(checked) != cfg.n_layers or routes != ["wgmma"]:
+        fail(f"whisper's prefill ran flash attention {len(checked)} times "
+             f"through {routes}, expected {cfg.n_layers} through wgmma")
+    if not (torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            == gen[:, 0]).all():
+        fail("whisper's first served token is not the prefill's argmax")
+    print(f"  prefill parts on their own: encoder {enc_s:.4f} s, decoder "
+          f"forward {fwd_s:.4f} s, replay {replay_s:.4f} s (of the serve's "
+          f"{prefill_s:.4f} s); flash calls {len(checked)} through {routes},"
+          f" each against the plain version on its inputs, max abs err "
+          f"{err:.3g} (tolerance {FLASH_TOL['bfloat16']:g})")
+    del logits
+    check_encdec_logits(params, frames, prompts, cfg, gen)
+
+    tok = prompts[:, :1]
+    pos = ENCDEC_PROMPT
+    E.decode_step(params, caches, tok, pos, cfg)
+    _, step_s = synced_s(lambda: E.decode_step(params, caches, tok, pos + 1,
+                                               cfg))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_s = synced_s(lambda: E.decode_step(params, caches, tok,
+                                                   pos + 2, cfg))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(device_ms(e) for e in events)
+    print(f"  one decode step {step_s * 1e3:.3f} ms on {card}; profiled "
+          f"step: {sum(e.count for e in events)} kernels, device busy "
+          f"{busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (wall_s * 1e3):.4f})")
+    for e in sorted(events, key=device_ms, reverse=True)[:5]:
+        print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+    del params, prompts, frames, caches, enc_out
+    torch.cuda.empty_cache()
+    return counts, err
+
+
+def time_encdec_flash(dev, card):
+    """(b): the wgmma kernel at whisper's heads (MHA 6/6, hd 64, causal,
+    bf16) at ENCDEC_FLASH, each against the plain version
+    (`check_wgmma_case`), timed queued (median of `steady_ms`) beside
+    the plain version and causal SDPA (`sdpa_yardstick`), with the bound
+    (`flash_bound`) and the instance's blocks per SM.  Returns (largest
+    error, one row per shape for the kernels line)."""
+    smem, blocks = fkernel.wgmma_occupancy(64)
+    worst, rows = 0.0, []
+    for i, (b, s, h, kv, hd) in enumerate(ENCDEC_FLASH):
+        case = (f"whisper S={s}", b, s, h, kv, hd, None, None, False)
+        q, k, v, got, err = check_wgmma_case(case, dev, 530 + i,
+                                             fops.flash_attention_plain)
+        worst = max(worst, err)
+        lib_label, lib, to_bshd = sdpa_yardstick(q, k, v, None, None, False)
+        lib_err = (to_bshd(lib()).float() - got.float()).abs().max().item()
+        q_ms = steady_ms(queued_ms, lambda: fops.flash_attention(q, k, v))
+        l_ms = steady_ms(queued_ms, lib)
+        plain_ms = timed_ms(lambda: fops.flash_attention_plain(q, k, v),
+                            reps=5)
+        bound_ms, bound_by, nbytes, flops = flash_bound(b, s, h, kv, hd)
+        print(f"  timing on {card}, queued, median of 5 [range]: wgmma "
+              f"{q_ms[0]:.5f} [{q_ms[1]:.5f}-{q_ms[2]:.5f}] ms"
+              f"{held_note(q_ms)}, {lib_label} {l_ms[0]:.5f} "
+              f"[{l_ms[1]:.5f}-{l_ms[2]:.5f}] ms{held_note(l_ms)} (vs wgmma "
+              f"max abs {lib_err:.3g}), plain {plain_ms:.4f} ms (back to "
+              f"back); bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, "
+              f"{flops} FLOP); wgmma {q_ms[0] / l_ms[0]:.2f}x SDPA's time, "
+              f"{bound_ms / q_ms[0]:.3f} of its bound; {smem} bytes of shared"
+              f" memory a block, {blocks} blocks per SM at hd 64")
+        rows.append(dict(case=case[0], b=b, s=s, heads=f"{h}/{kv}", hd=hd,
+                         max_abs_err=err, ms=q_ms[0], plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library=lib_label, library_ms=l_ms[0],
+                         blocks_per_sm=blocks))
+        del q, k, v, got, lib, to_bshd
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+def run_encdec_train(card):
+    """(c): `make_train_step` on whisper-tiny at full size (f32 weights,
+    bf16 compute, remat "block"), 6 steps on one batch of 16 x 224 tokens
+    with its 16 x 1,500 frames, counts zeroed just before and read just
+    after (training launches none: the flash route has no backward):
+    step time (median of steps 2-6), tokens/s, peak memory, the
+    optimizer's share, the loss falling; then the reduced twin in f32, 3
+    steps on the card against the CPU (`run_train_parity`)."""
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    state = tsteps.init_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    batch = encdec_batch(cfg, 0, "cuda", batch=ENCDEC_BATCH)
+    step = tsteps.make_train_step(cfg, TRAIN_OPT)
+    losses, secs = [], []
+    zero_counts()
+    for _ in range(TRAIN_STEPS):
+        (state, m), sec = synced_s(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        secs.append(sec)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"whisper's train steps launched {counts}")
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        fail(f"whisper training: losses {losses} not finite or not lower "
+             "at the last step")
+    step_s = float(np.median(secs[1:]))
+    tokens = ENCDEC_BATCH * ENCDEC_PROMPT
+    names, leaves = zip(*state.params.named_parameters())
+    loss, _ = E.lm_loss(state.params, batch, cfg)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    opt_ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        _, opt, _ = topt.update(TRAIN_OPT, grads, state.opt, state.params)
+        end.record()
+        torch.cuda.synchronize()
+        state = state._replace(opt=opt)
+        opt_ms.append(start.elapsed_time(end))
+    opt_med = float(np.median(opt_ms))
+    print(f"encdec (c) {cfg.name} train on {card}: batch {ENCDEC_BATCH} x "
+          f"{ENCDEC_PROMPT} tokens with {ENCDEC_BATCH} x {cfg.enc_seq} "
+          f"frames, remat {cfg.remat}, {cfg.compute_dtype} compute; losses "
+          f"{losses}; step s {secs} (median of steps 2-{TRAIN_STEPS} "
+          f"{step_s:.6f} s, {tokens / step_s:.1f} decoder tokens/s); peak "
+          f"memory {peak} bytes ({peak / 1e9:.3f} GB); optimizer.update "
+          f"alone {opt_med:.4f} ms ({opt_med / (step_s * 1e3):.4f} of the "
+          f"median step); launches {counts}")
+    del state, grads, batch, loss
+    torch.cuda.empty_cache()
+    run_train_parity(card, ENCDEC_ARCH, label="encdec (c)",
+                     seq=ENCDEC_PROMPT, batch_fn=encdec_batch)
+
+
+def run_encdec_path(dev, card, with_domain):
+    """The encoder-decoder phase: (a) the serve, (b) the wgmma kernel at
+    whisper's heads, (c) training, and with ``with_domain`` (d) the
+    stream kernel's global-memory instance (`check_global_domain`; the
+    whole script runs it beside the other domain checks).  Returns (the
+    serve's launch counts, the largest flash error, the (b) rows)."""
+    t0 = time.perf_counter()
+    (counts, err), a_s = synced_s(lambda: run_encdec_serve(card))
+    (err_b, rows), b_s = synced_s(lambda: time_encdec_flash(dev, card))
+    _, c_s = synced_s(lambda: run_encdec_train(card))
+    d_s = 0.0
+    if with_domain:
+        _, d_s = synced_s(lambda: check_global_domain(dev, card))
+    print(f"encdec phase on {card}: {time.perf_counter() - t0:.1f} s (a) "
+          f"{a_s:.1f} s, (b) {b_s:.1f} s, (c) {c_s:.1f} s, (d) {d_s:.1f} s")
+    return counts, max(err, err_b), rows
 
 
 def time_ablate_split(cfg, log, pols, dev, card):
@@ -3694,6 +4201,9 @@ def main() -> None:
     err_1d, err_grid, err_merge = (max(err_1d, e_1d), max(err_grid, e_s),
                                    max(err_merge, e_m))
     print(f"domain phase: {time.perf_counter() - t0:.1f} s")
+    g_errs, global_ms, global_rows, global_counts = check_global_domain(
+        dev, card)
+    err_merge = max(err_merge, g_errs[2])
 
     # -- the main paths at the paper's §4 size -----------------------------
     pols = engine_pols()
@@ -3780,6 +4290,8 @@ def main() -> None:
     run_train_path(card)
     err_moe, moe_rows, moe_launches = run_moe_path(dev, card)
     ssm_launches, err_ssm = run_ssm_path(dev, card)
+    encdec_counts, err_encdec, encdec_rows = run_encdec_path(
+        dev, card, with_domain=False)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -3803,6 +4315,16 @@ def main() -> None:
              sharded_launches=sharded_counts["per_client"][
                  "sched_stream_grid"],
              library_ms=None, **t_grid),
+        dict(name="sched_stream_global", route="cuda", source=src,
+             replaces=f"{ref}:130",
+             launches=global_counts["sched_stream_global"],
+             max_abs_err=g_errs[0], library_ms=None, domain_ms=global_ms,
+             **global_rows["sched_stream_global"]),
+        dict(name="sched_stream_grid_global", route="cuda", source=src,
+             replaces=f"{ref}:177",
+             launches=global_counts["sched_stream_grid_global"],
+             max_abs_err=g_errs[1], library_ms=None,
+             **global_rows["sched_stream_grid_global"]),
         dict(name="client_merge", route="cuda", source=src,
              replaces=f"{ref}:558", launches=pc_counts["client_merge"],
              max_abs_err=err_merge,
@@ -3824,6 +4346,8 @@ def main() -> None:
              moe_serve_launches=moe_launches, moe_max_abs_err=err_moe,
              moe_shapes=moe_rows, ssm_serve_launches=ssm_launches,
              ssm_max_abs_err=err_ssm,
+             encdec_serve_launches=encdec_counts["flash_attention_wgmma"],
+             encdec_max_abs_err=err_encdec, encdec_shapes=encdec_rows,
              **t_flash["wgmma"]),
         dict(name="threefry2x32", route="cuda",
              source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
@@ -3838,7 +4362,7 @@ def main() -> None:
 
 def main_phase(flag: str) -> None:
     """`python3 chip_smoke.py --host-path`, `--train-path`,
-    `--contract`, `--moe` or `--ssm`: that phase alone."""
+    `--contract`, `--moe`, `--ssm` or `--encdec`: that phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
@@ -3851,6 +4375,11 @@ def main_phase(flag: str) -> None:
         run_moe_path(torch.device("cuda"), card)
     elif flag == "--ssm":
         run_ssm_path(torch.device("cuda"), card)
+    elif flag == "--encdec":
+        sources = (skernel.SOURCE, fkernel.SOURCE, fkernel.WGMMA_SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(_build.build, sources))
+        run_encdec_path(torch.device("cuda"), card, with_domain=True)
     else:
         run_train_path(card)
     print(json.dumps({"ok": True, "device": {
@@ -3864,7 +4393,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
-                          ["--moe"], ["--ssm"]):
+                          ["--moe"], ["--ssm"], ["--encdec"]):
         main_phase(sys.argv[1])
     else:
         main()

@@ -2,9 +2,10 @@
 
 The ids are the JAX package's.  The three dense attention-only
 architectures, the two attention + MoE ones (mixtral, llama4), the
-mamba + attention + MoE hybrid (jamba) and the xLSTM (xlstm) run in the
-port; the others need parts the port has not ported yet and raise naming
-their ROADMAP item.
+mamba + attention + MoE hybrid (jamba), the xLSTM (xlstm) and the
+encoder-decoder (whisper-tiny, `models.encdec`) run in the port; the
+others need parts the port has not ported yet and raise naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,11 +23,11 @@ _MODULES: Dict[str, str] = {
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 # what each architecture not yet in the port waits for
 _UNPORTED: Dict[str, str] = {
-    "whisper-tiny": "the encoder-decoder stack and cross-attention",
     "qwen2-72b": "the sharded multi-card stack (a 72B model)",
     "qwen2-vl-72b": "M-RoPE and the sharded multi-card stack",
 }

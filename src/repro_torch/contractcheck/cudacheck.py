@@ -32,7 +32,7 @@ so in the build module.
 **(b) SASS** (needs the CUDA toolkit: the card's machine).  Each scoped
 source is built with the package's own build (`kernels._build`) and its
 library disassembled with ``cuobjdump -sass``; in every kernel function
-(each ``sched_stream_kernel<P, L, A>`` instantiation and
+(each ``sched_stream_kernel<P, L, A, G>`` instantiation and
 ``client_merge_kernel``) float atomics and reductions (``ATOM``/``ATOMS``/
 ``ATOMG``/``RED``/``REDG`` carrying ``.F16``/``.BF16``/``.F32``/``.F64``,
 and the compare-and-swap loop ``ATOMS.CAST.SPIN``, which is how nvcc

@@ -428,10 +428,10 @@ def run_stream(state: SchedState, work: Workload, key: torch.Tensor, *,
     eager engine over any leading batch axes; ``"kernel"`` runs the
     stream kernel, one launch per call, for one stream or a (T,) batch
     (`ops.sched_stream`).  The two agree bit for bit, the randomized
-    policies under ``PolicyConfig(rng="lcg")``.  The kernel takes a
-    window and padded server count whose stream fits a block's shared
-    memory (`kernels.sched_select.kernel.check_stream_domain`); the eager
-    engine has no cap."""
+    policies under ``PolicyConfig(rng="lcg")``.  The kernel takes any
+    window and padded server count: a stream past a block's shared
+    memory runs in its global-memory instance
+    (`kernels.sched_select.kernel.check_stream_domain`)."""
     validate_policy(policy, state.n_servers)
     if observe is None:
         observe = trace is not None

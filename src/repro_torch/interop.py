@@ -3,7 +3,8 @@
 Two kinds: a simulation's prepared inputs (`from_prep`), and a language
 model's configuration, parameters and train state
 (`model_config_from_fields`, `lm_params_from_numpy`,
-`lm_state_dict_from_numpy`, `train_state_from_numpy`).
+`encdec_params_from_numpy`, `lm_state_dict_from_numpy`,
+`train_state_from_numpy`).
 
 The port draws the same trials as the JAX package from the same seed
 (`repro_torch.random` is its threefry, key for key), except that the
@@ -29,6 +30,7 @@ import torch
 from repro_torch.core.engine import ClusterTrace, Workload
 from repro_torch.core.statlog import SchedState
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import MoEConfig, ModelConfig, SSMConfig
 from repro_torch.train import optimizer as O
@@ -49,6 +51,13 @@ class PrepInputs(NamedTuple):
 
 def _t(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def _tensors(group, dev, index=None) -> Dict[str, torch.Tensor]:
+    """``group``'s arrays (entry ``index`` of each) on ``dev``."""
+    pick = (lambda a: a) if index is None else (lambda a: a[index])
+    return {k: torch.from_numpy(np.array(pick(a))).to(dev)
+            for k, a in group.items()}
 
 
 def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
@@ -112,13 +121,7 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
     ``cell``.  dtypes are kept."""
     T._check_supported(cfg)
     dev = resolve_device(device)
-
-    def tensors(group, index=None) -> Dict[str, torch.Tensor]:
-        """``group``'s arrays (entry ``index`` of each) on ``dev``."""
-        pick = (lambda a: a) if index is None else (lambda a: a[index])
-        return {k: torch.from_numpy(np.array(pick(a))).to(dev)
-                for k, a in group.items()}
-
+    tensors = lambda group, index=None: _tensors(group, dev, index)
     groups = tree["groups"]
     blocks = []
     for li in range(cfg.n_layers):
@@ -134,26 +137,61 @@ def lm_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                 blocks)
 
 
+def encdec_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                             device="cuda") -> E.EncDec:
+    """Load the JAX package's ``init_encdec`` pytree, as numpy arrays,
+    into the port's `encdec.EncDec`: ``embed``, ``enc_final_norm`` and
+    ``final_norm`` as they are, the encoder's blocks from
+    ``enc_groups/pos_0/...`` and the decoder's from ``groups/pos_0/...``,
+    whose leaves carry a leading ``n_enc_layers`` / ``n_layers`` axis.
+    dtypes are kept."""
+    E._check_encdec(cfg)
+    dev = resolve_device(device)
+
+    def stack(group, n, names):
+        if set(group) != set(names):
+            raise ValueError(f"a block holds {sorted(group)}; the port "
+                             f"loads {sorted(names)}")
+        return [{name: _tensors(sub, dev, li) for name, sub in group.items()}
+                for li in range(n)]
+
+    return E.EncDec(
+        _tensors(tree["embed"], dev),
+        stack(tree["enc_groups"]["pos_0"], cfg.n_enc_layers, E.ENC_NAMES),
+        _tensors(tree["enc_final_norm"], dev),
+        stack(tree["groups"]["pos_0"], cfg.n_layers, E.DEC_NAMES),
+        _tensors(tree["final_norm"], dev))
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
+                      device="cuda"):
+    """`encdec_params_from_numpy` for an encoder-decoder, else
+    `lm_params_from_numpy`."""
+    load = encdec_params_from_numpy if cfg.enc_dec else lm_params_from_numpy
+    return load(tree, cfg, device)
+
+
 def lm_state_dict_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                              device="cuda") -> Dict[str, torch.Tensor]:
-    """A pytree shaped as ``init_lm``'s (the parameters, their gradients
-    or an Adam moment of them), as numpy arrays, keyed by the port's
-    `LM` ``state_dict`` names."""
-    return dict(lm_params_from_numpy(tree, cfg, device).state_dict())
+    """A pytree shaped as ``init_lm``'s or ``init_encdec``'s (the
+    parameters, their gradients or an Adam moment of them), as numpy
+    arrays, keyed by the port's ``state_dict`` names."""
+    return dict(params_from_numpy(tree, cfg, device).state_dict())
 
 
 def train_state_from_numpy(state, cfg: ModelConfig,
                            device="cuda") -> S.TrainState:
     """The JAX package's ``TrainState`` (``params``, ``opt.m``,
     ``opt.v``, ``opt.count``, ``step``), its leaves as numpy arrays, as
-    the port's `train.TrainState`: the moments keyed by ``state_dict``
-    names, the counters int32."""
+    the port's `train.TrainState` (an `encdec.EncDec` for an
+    encoder-decoder): the moments keyed by ``state_dict`` names, the
+    counters int32."""
     dev = resolve_device(device)
     m, v = (lm_state_dict_from_numpy(t, cfg, dev)
             for t in (state.opt.m, state.opt.v))
     counter = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
                                      device=dev)
-    return S.TrainState(params=lm_params_from_numpy(state.params, cfg, dev),
+    return S.TrainState(params=params_from_numpy(state.params, cfg, dev),
                         opt=O.OptState(m=m, v=v,
                                        count=counter(state.opt.count)),
                         step=counter(state.step))

@@ -4,8 +4,10 @@
 ``kernels/sched_select/kernel.py::sched_stream_call``: T independent
 windowed request streams scheduled in one launch of
 ``csrc/sched_stream.cu`` (a warp per stream, or half of one in the 2-D
-form where two streams fit a block, the stream's ``(4, M_pad)`` log in
-shared memory: `check_stream_domain` is the kernel's one limit).  `sched_stream_grid_call` is the counterpart of
+form, the stream's ``(4, M_pad)`` log and its window's arrays in shared
+memory where one stream fits a block's opt-in budget, else in a workspace
+in device memory: `check_stream_domain` picks the instance and states the
+limits).  `sched_stream_grid_call` is the counterpart of
 ``sched_stream_grid_call``: the same kernel over the T·C streams of the
 per_client model, then the ``client_merge`` kernel for the per-trial
 cross-client merge.  `sched_select_call` is the legacy single-window
@@ -29,11 +31,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "sched_stream.cu"
 # policy codes of the CUDA source's `Policy` enum
 POLICY_CODES = {"minload": 0, "two_random": 1, "ect": 2, "trh": 3, "rr": 4,
                 "two_choice": 5, "mlml": 6, "nltr": 7}
-# where inputs past the stream kernel's shared-memory budget do run: the
-# eager engine has no cap (nothing dispatches there on its own)
-EAGER_NOTE = ("; SimConfig(backend='jax') or run_stream(backend='jax') "
-              "schedules them on the card with the eager engine, which has "
-              "no cap")
+# the global instance's workspace holds fewer float32 words than this: the
+# C entry's bound on it (sched_stream_launch), an int32 count
+INT32_WORDS = 2 ** 31
 # Warps per block of the stream kernel, by form: a launch shape only,
 # since streams are independent.  Measured on the H100 (PERF.md, §6):
 # the 1-D form's T=100 latency-bound streams read the same for ect at one
@@ -55,10 +55,12 @@ ABLATE_LEVELS = (0, 1, 2, 3)
 
 # Launches in this process, by kernel form (reset by callers that count):
 # the stream kernel over trials (1-D) at its full level or at an ablate
-# level above 0 (timing only), over trials x clients (2-D), and the
+# level above 0 (timing only), over trials x clients (2-D), each form's
+# global-memory instance (streams past the shared-memory budget), and the
 # cross-client merge.
 LAUNCHES = {"sched_stream": 0, "sched_stream_ablate": 0,
-            "sched_stream_grid": 0, "client_merge": 0}
+            "sched_stream_grid": 0, "sched_stream_global": 0,
+            "sched_stream_grid_global": 0, "client_merge": 0}
 
 _LIB = None
 
@@ -69,10 +71,10 @@ def _library():
         lib = _build.load(SOURCE)
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.sched_stream_launch.argtypes = (
-            [ptr] * 12 + [i32] * 6 + [f32] * 5 + [i32] * 9 + [ptr])
+            [ptr] * 13 + [i32] * 6 + [f32] * 5 + [i32] * 9 + [ptr])
         lib.sched_stream_launch.restype = ctypes.c_int
         lib.sched_stream_occupancy.argtypes = (
-            [i32] * 6 + [ctypes.POINTER(i32)] * 3)
+            [i32] * 6 + [ctypes.POINTER(i32)] * 4)
         lib.sched_stream_occupancy.restype = ctypes.c_int
         i64p = ctypes.POINTER(ctypes.c_longlong)
         lib.sched_stream_budget.argtypes = [i32] * 3 + [i64p] * 2
@@ -126,9 +128,9 @@ def _raise_on(code: int, what: str) -> None:
 
 
 def stream_budget(policy: str, m_pad: int, window_size: int) -> tuple:
-    """(shared-memory bytes one stream of ``policy`` needs at this padded
-    server count and window, the bytes a block of the current CUDA device
-    may opt in to), as the CUDA source counts them
+    """(bytes one stream of ``policy`` needs at this padded server count
+    and window, the bytes of shared memory a block of the current CUDA
+    device may opt in to), as the CUDA source counts them
     (``sched_stream_budget``)."""
     words, budget = ctypes.c_longlong(), ctypes.c_longlong()
     _raise_on(_library().sched_stream_budget(
@@ -137,31 +139,59 @@ def stream_budget(policy: str, m_pad: int, window_size: int) -> tuple:
     return 4 * words.value, budget.value
 
 
-def check_stream_domain(policy: str, m_pad: int, window_size: int) -> None:
-    """Raise unless one stream of this shape fits a block's shared memory
-    on the current CUDA device: the stream kernel's only limit on the
-    window and the server count.  The message names the budget, what the
-    input needs and the eager engine, which has no cap."""
+def device_free_bytes() -> int:
+    """Bytes the current CUDA device can still hand out: free on the
+    device (``cudaMemGetInfo``), plus what PyTorch's caching allocator
+    holds unused."""
+    free, _ = torch.cuda.mem_get_info()
+    return free + torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+
+
+def check_stream_domain(policy: str, m_pad: int, window_size: int,
+                        n_streams: int = 1, instance=None) -> tuple:
+    """The instance that ``n_streams`` streams of this shape take on the
+    current CUDA device and its workspace bytes: ``("shared", 0)`` where
+    one stream fits a block's opt-in shared memory, else ``("global",
+    n_streams * bytes a stream)``; ``instance="global"`` asks for the
+    global one at any shape (the checks hold the two against each other).
+    The global instance raises before any launch where its workspace's
+    words reach 2**31 (int32 indexing) or its bytes pass what the device
+    has free, naming the limit; the window and the server count have no
+    cap of their own."""
+    if instance not in (None, "global"):
+        raise ValueError(f"instance={instance!r} must be None (by the "
+                         "shared-memory budget) or 'global'")
     need, budget = stream_budget(policy, m_pad, window_size)
-    if need > budget:
-        raise ValueError(
-            f"window_size={window_size} with M_pad={m_pad} needs {need} "
-            f"bytes ({need // 4} words) of shared memory a stream under "
-            f"{policy}, past the {budget} bytes a block may take on this "
-            "card (cudaDevAttrMaxSharedMemoryPerBlockOptin), so the CUDA "
-            "stream kernel cannot hold it (the JAX reference has no cap)"
-            f"{EAGER_NOTE}")
+    if need <= budget and instance is None:
+        return "shared", 0
+    shape = (f"{n_streams} streams of window_size={window_size} with "
+             f"M_pad={m_pad} under {policy}, {need} bytes a stream (a "
+             f"block may take {budget} bytes of shared memory)")
+    words = n_streams * (need // 4)
+    if words >= INT32_WORDS:
+        raise ValueError(f"{shape}, need a workspace of {words} words in "
+                         "device memory, past the 2**31 words its int32 "
+                         "indexing reaches: launch fewer streams at a time")
+    free = device_free_bytes()
+    if 4 * words > free:
+        raise ValueError(f"{shape}, need a workspace of {4 * words} bytes "
+                         f"in device memory, past the {free} bytes free "
+                         "on this card: launch fewer streams at a time")
+    return "global", 4 * words
 
 
 def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
                     form, lead, n_servers, window_size, threshold, lam, alpha,
                     window_dt, policy, observe, renorm, nltr_n=2,
-                    probe_choices=2, trial_tile=None, ablate=0):
+                    probe_choices=2, trial_tile=None, ablate=0,
+                    instance=None):
     """Check the operands and launch the stream kernel over the streams of
     the leading shape ``lead`` ((T,) or (T, C)), with the launch shape of
     ``form`` (a `LAUNCHES` key; ``trial_tile`` as `resolve_warps`) at the
-    ablate level ``ablate``; win_rates carry the trial axis only.
-    Returns the five per-stream outputs."""
+    ablate level ``ablate``, in the instance `check_stream_domain` picks
+    (``instance`` as there); win_rates carry the trial axis only.
+    Returns (the instance `check_stream_domain` picked, the five
+    per-stream outputs)."""
     if policy not in POLICY_CODES:
         raise ValueError(f"policy must be one of {tuple(POLICY_CODES)}")
     if ablate not in ABLATE_LEVELS:
@@ -199,13 +229,18 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
     for d in lead:
         n_streams *= d
     with torch.cuda.device(dev):
-        check_stream_domain(policy, m_pad, window_size)
+        instance, ws_bytes = check_stream_domain(policy, m_pad, window_size,
+                                                 n_streams, instance)
+        # the global instance's per-stream arrays, on the launch's stream
+        workspace = torch.empty(ws_bytes // 4, dtype=torch.float32,
+                                device=dev) if ws_bytes else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = _library().sched_stream_launch(
             object_ids.data_ptr(), lengths.data_ptr(), valid.data_ptr(),
             tables.data_ptr(), seeds32.data_ptr(), win_rates.data_ptr(),
             win_dec.data_ptr(), choices.data_ptr(), lats.data_ptr(),
             ftab.data_ptr(), wloads.data_ptr(), metrics.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
             n_streams, n_win, window_size, n_servers, m_pad,
             POLICY_CODES[policy], float(threshold), float(lam), float(alpha),
             float(1 - alpha), float(window_dt), int(bool(window_dt)),
@@ -213,7 +248,12 @@ def _launch_streams(object_ids, lengths, valid, tables, seeds, win_rates, *,
             n_streams // lead[0], resolve_warps(form, trial_tile),
             LANES_PER_STREAM[form], int(ablate), stream)
     _raise_on(code, "sched_stream")
-    return choices, lats, ftab, wloads, metrics
+    return instance, (choices, lats, ftab, wloads, metrics)
+
+
+def _count_key(form: str, instance: str) -> str:
+    """The `LAUNCHES` key of a launch of ``form`` in ``instance``."""
+    return form if instance == "shared" else f"{form}_global"
 
 
 def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
@@ -231,18 +271,21 @@ def sched_stream_call(object_ids: torch.Tensor, lengths: torch.Tensor,
     states in any integer dtype; win_rates: (T, W, M_pad) float32 true
     rates.  ``trial_tile``: warps per block (`resolve_warps`).
     ``ablate``: one of `ABLATE_LEVELS`; above 0 the launch is for timing
-    and counts under ``LAUNCHES["sched_stream_ablate"]``.  Returns
-    (choices (T, N) int32, latencies (T, N) float32, final_tables
+    and counts under ``LAUNCHES["sched_stream_ablate"]``; a level-0
+    launch of the global instance (a stream past a block's shared memory,
+    `check_stream_domain`) counts under ``LAUNCHES["sched_stream_global"]``.
+    Returns (choices (T, N) int32, latencies (T, N) float32, final_tables
     (T, 4, M_pad), window_loads (T, W, M_pad), metrics (T, MET_PAD)
     float32 in `policy_core.MET_*` lane order)."""
-    out = _launch_streams(
+    instance, out = _launch_streams(
         object_ids, lengths, valid, tables, seeds, win_rates,
         form="sched_stream", lead=tuple(object_ids.shape[:1]),
         n_servers=n_servers, window_size=window_size, threshold=threshold,
         lam=lam, alpha=alpha, window_dt=window_dt, policy=policy,
         observe=observe, renorm=renorm, nltr_n=nltr_n,
         probe_choices=probe_choices, trial_tile=trial_tile, ablate=ablate)
-    LAUNCHES["sched_stream_ablate" if ablate else "sched_stream"] += 1
+    LAUNCHES["sched_stream_ablate" if ablate else _count_key(
+        "sched_stream", instance)] += 1
     return out
 
 
@@ -260,27 +303,30 @@ def sched_stream_grid_streams(object_ids: torch.Tensor,
     if kw.get("ablate"):
         raise ValueError("ablate profiling levels support the trial-grid "
                          "(1-D) form only")
-    out = _launch_streams(object_ids, lengths, valid, tables, seeds,
-                          win_rates, form="sched_stream_grid",
-                          lead=tuple(object_ids.shape[:2]), **kw)
-    LAUNCHES["sched_stream_grid"] += 1
+    instance, out = _launch_streams(object_ids, lengths, valid, tables,
+                                    seeds, win_rates,
+                                    form="sched_stream_grid",
+                                    lead=tuple(object_ids.shape[:2]), **kw)
+    LAUNCHES[_count_key("sched_stream_grid", instance)] += 1
     return out
 
 
 def stream_occupancy(form: str, policy: str, n_servers: int, m_pad: int,
                      window_size: int, trial_tile=None) -> tuple:
-    """(blocks per SM, streams per block, dynamic shared memory bytes) of
-    the stream kernel's level-0 launch in ``form`` for this policy and
-    shape (``trial_tile`` as `resolve_warps`), as the CUDA runtime reports
-    them for the current card."""
+    """(blocks per SM, streams per block, dynamic shared memory bytes,
+    instance: "shared" or "global") of the stream kernel's level-0 launch
+    in ``form`` for this policy and shape (``trial_tile`` as
+    `resolve_warps`), as the CUDA runtime reports them for the current
+    card."""
     i32 = ctypes.c_int
-    blocks, streams, smem = i32(), i32(), i32()
+    blocks, streams, smem, gmem = i32(), i32(), i32(), i32()
     _raise_on(_library().sched_stream_occupancy(
         POLICY_CODES[policy], n_servers, m_pad, window_size,
         resolve_warps(form, trial_tile), LANES_PER_STREAM[form],
-        ctypes.byref(blocks), ctypes.byref(streams), ctypes.byref(smem)),
-        "sched_stream occupancy")
-    return blocks.value, streams.value, smem.value
+        ctypes.byref(blocks), ctypes.byref(streams), ctypes.byref(smem),
+        ctypes.byref(gmem)), "sched_stream occupancy")
+    return (blocks.value, streams.value, smem.value,
+            "global" if gmem.value else "shared")
 
 
 def client_merge_call(metrics: torch.Tensor, wloads: torch.Tensor,

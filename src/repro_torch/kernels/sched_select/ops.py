@@ -217,9 +217,9 @@ def sched_select(object_ids: torch.Tensor, *args, **kw):
     to each client's log, seeds (C,) uint32 states; keywords
     ``n_servers``, ``threshold``, ``lam``, ``policy`` (minload or
     two_random).  Returns (choices (C, N) int32, final_loads (C, M)).
-    On the card the N requests are one window of the stream kernel, so a
-    stream of them must fit a block's shared memory
-    (`kernel.check_stream_domain`); the plain version has no cap."""
+    On the card the N requests are one window of the stream kernel, in
+    its global-memory instance where a stream of them does not fit a
+    block's shared memory (`kernel.check_stream_domain`)."""
     return _select(_pick(object_ids, sched_select_call, _select_plain),
                    object_ids, *args, **kw)
 

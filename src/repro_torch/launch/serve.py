@@ -9,7 +9,11 @@ card by default::
 The prompt goes through `forward_prefill` with the flash kernel
 (``use_pallas_attn``) and fills the ring KV caches; the first token is the
 argmax of the prefill's last logits, then ``gen - 1`` greedy
-`decode_step`s follow.  Weights are random, from ``--seed``.
+`decode_step`s follow.  Weights are random, from ``--seed``.  An
+encoder-decoder (whisper-tiny) takes stub frames (B, enc_seq, d) from
+their own seeded stream (`stub_frames`), encodes them once and serves
+through `models.encdec` (its decoder's self attention on the flash
+kernel).
 """
 
 from __future__ import annotations
@@ -22,11 +26,13 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import make_decode_step
 
 PROMPT_SEED = 2     # the prompts' own stream, as in the JAX serve module
+FRAMES_SEED = 1     # the stub frames' own stream, likewise
 
 
 def _sync(dev: torch.device) -> None:
@@ -35,18 +41,25 @@ def _sync(dev: torch.device) -> None:
 
 
 @torch.no_grad()
-def generate(params: T.LM, prompts: torch.Tensor, cfg: ModelConfig,
-             gen: int):
-    """Greedy generation of ``gen`` tokens after ``prompts`` (B, S).
-    Returns (tokens (B, gen) int64, prefill seconds, decode seconds), each
-    phase ended by a synchronize on the card."""
+def generate(params, prompts: torch.Tensor, cfg: ModelConfig, gen: int,
+             frames=None):
+    """Greedy generation of ``gen`` tokens after ``prompts`` (B, S), an
+    encoder-decoder's against ``frames`` (B, S_enc, d).  Returns (tokens
+    (B, gen) int64, prefill seconds, decode seconds), each phase ended by
+    a synchronize on the card."""
     dev = prompts.device
     s = prompts.shape[1]
+    batch, prefill = {"tokens": prompts}, T.forward_prefill
+    if cfg.enc_dec:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass its "
+                             "frames (B, enc_seq, d_model)")
+        batch, prefill = dict(batch, frames=frames), E.forward_prefill
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = T.forward_prefill(
-        params, {"tokens": prompts},
-        dataclasses.replace(cfg, use_pallas_attn=True), cache_len=s + gen)
+    logits, caches = prefill(
+        params, batch, dataclasses.replace(cfg, use_pallas_attn=True),
+        cache_len=s + gen)
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -63,13 +76,24 @@ def generate(params: T.LM, prompts: torch.Tensor, cfg: ModelConfig,
     return torch.cat(out, dim=1), t_prefill, t_decode
 
 
+def stub_frames(cfg: ModelConfig, batch: int, device) -> torch.Tensor:
+    """An encoder-decoder's stub frame embeddings (B, enc_seq, d_model)
+    float32, standard normal from their own stream (`FRAMES_SEED`)."""
+    dev = resolve_device(device)
+    return torch.randn((batch, cfg.enc_seq, cfg.d_model), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           FRAMES_SEED))
+
+
 def setup(args):
     """(cfg, params, prompts (B, S) int64) of a serving run: the same
-    for the same arguments, so a caller can rebuild a run's inputs."""
+    for the same arguments, so a caller can rebuild a run's inputs (an
+    encoder-decoder's frames: `stub_frames`)."""
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
-    params = T.init_lm(torch.Generator(device=dev).manual_seed(args.seed),
-                       cfg, device=dev)
+    init = E.init_encdec if cfg.enc_dec else T.init_lm
+    params = init(torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                  device=dev)
     prompts = torch.randint(
         1, cfg.vocab_size, (args.batch, args.prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(PROMPT_SEED))
@@ -79,7 +103,9 @@ def setup(args):
 def serve(args) -> dict:
     cfg, params, prompts = setup(args)
     b, s = prompts.shape
-    tokens, t_prefill, t_decode = generate(params, prompts, cfg, args.gen)
+    frames = stub_frames(cfg, b, prompts.device) if cfg.enc_dec else None
+    tokens, t_prefill, t_decode = generate(params, prompts, cfg, args.gen,
+                                           frames)
     gen = tokens.cpu().numpy()
     toks_per_s = b * (args.gen - 1) / max(t_decode, 1e-9)
     print(f"[serve] arch={cfg.name} batch={b} prompt={s} gen={args.gen}")

@@ -12,7 +12,10 @@ Reduced config on the card, local object store, injected straggler::
         --ckpt-dir /tmp/ckpt --policy trh --inject-straggler 2
 
 ``--device cpu`` runs the same on the CPU.  The port trains on one card:
-``--mesh`` takes ``none`` only.
+``--mesh`` takes ``none`` only.  An encoder-decoder (whisper-tiny) is
+refused: the token batches carry no frames, so the JAX launcher cannot
+train one either; train it through `train.make_train_step` on batches
+``{frames, tokens, targets}``.
 """
 
 from __future__ import annotations
@@ -55,6 +58,15 @@ def make_checkpointer(args, n_servers: int = 8) -> Checkpointer:
 def train(args) -> dict:
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if cfg.enc_dec:
+        # the JAX package's launcher fails on the same batches, at its
+        # loss's batch["frames"]
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: this launcher's "
+            "SyntheticTokens batches carry no frames, so it cannot train "
+            "one (nor can the JAX package's launch/train.py); train it "
+            "through train.make_train_step on batches {frames, tokens, "
+            "targets}")
     opt_cfg = OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                         total_steps=args.steps)
     data = SyntheticTokens(DataConfig(

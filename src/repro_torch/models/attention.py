@@ -9,7 +9,9 @@ The port's counterpart of the JAX package's ``models/attention.py``.
   the hand-written CUDA flash kernel on the card.  That route has no
   backward, so `self_attend` refuses it under autograd on every device.
 * Locality masks: causal, sliding-window (danube/mixtral), chunked-local
-  (llama4), or none.  ``is_global`` is a Python bool per layer.
+  (llama4), or none (whisper's encoder and cross attention:
+  `cross_attend` over keys `precompute_cross_kv` projects once from the
+  encoder's output).  ``is_global`` is a Python bool per layer.
 * Decode uses a ring KV cache sized to the layer's receptive field
   (full: S; SWA: window; chunked: chunk) with absolute slot positions for
   masking; keys are stored post-RoPE.  Unlike the JAX package, which
@@ -38,17 +40,18 @@ NEG_INF = -1e30
 
 # ------------------------------------------------------------------- params
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   device=None) -> Params:
-    """Draws in the order wq, wk, wv, wo.  (Cross-attention waits for the
-    encoder-decoder slice.)"""
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device=None,
+                   cross: bool = False) -> Params:
+    """Draws in the order wq, wk, wv, wo; zero q/k/v biases where
+    ``cfg.qkv_bias``, except for cross attention (``cross``), which has
+    none, as in the JAX package."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pd = cfg.pdtype
     p = {"wq": L.he_init(gen, (d, h * hd), pd, fan_in=d, device=device),
          "wk": L.he_init(gen, (d, kv * hd), pd, fan_in=d, device=device),
          "wv": L.he_init(gen, (d, kv * hd), pd, fan_in=d, device=device),
          "wo": L.he_init(gen, (h * hd, d), pd, fan_in=h * hd, device=device)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", h * hd), ("bk", kv * hd), ("bv", kv * hd)):
             p[name] = torch.zeros(width, dtype=pd, device=device)
     return p
@@ -263,3 +266,22 @@ def self_attend(p: Params, x: torch.Tensor, positions: torch.Tensor,
         o = attend_blocked(q, k, v, cfg, is_global=is_global, causal=True,
                            q_block=q_block)
     return out_proj(p, o, cfg)
+
+
+def cross_attend(p: Params, x: torch.Tensor,
+                 enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention: x (B, S, d) attends every
+    encoder position of ``enc_kv`` (`precompute_cross_kv`), no mask, no
+    RoPE, on the blocked route."""
+    q = project_q(p, x, cfg)
+    k, v = enc_kv
+    o = attend_blocked(q, k, v, cfg, causal=False)
+    return out_proj(p, o, cfg)
+
+
+def precompute_cross_kv(p: Params, enc_out: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention keys and values of the encoder's
+    output (B, S_enc, d), in the compute dtype."""
+    return project_kv(p, L.cast_to(enc_out, cfg.cdtype), cfg)

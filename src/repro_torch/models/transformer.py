@@ -26,8 +26,8 @@ Four block kinds, as in the JAX package: ``"attn"`` and ``"mamba"``
 ``cfg.layer_is_moe`` names, a Mixture-of-Experts FFN (`models.moe`) whose
 auxiliary terms are summed over the layers for `lm_loss`; ``"mlstm"``
 and ``"slstm"`` blocks are self-contained (the sLSTM's post-FFN is part
-of its cell).  The encoder-decoder stack raises naming ROADMAP Queue
-A13.  Decode caches are a list with one entry per layer: an attention
+of its cell).  An encoder-decoder configuration is built and served by
+`models.encdec` and raises here naming it.  Decode caches are a list with one entry per layer: an attention
 layer's ring cache, updated in place, or a recurrent layer's state as a
 dict of its fields, replaced each step.
 """
@@ -63,7 +63,10 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None and cfg.group_size % cfg.moe.every_n_layers:
         raise ValueError("moe.every_n_layers must divide group size")
     if cfg.enc_dec:
-        raise _unported("the encoder-decoder stack")
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: its parameters come from "
+            "models.encdec.init_encdec and its decode caches from "
+            "encdec.init_caches, not the decoder-LM assembly")
 
 
 def _param_dict(tensors: Params) -> nn.ParameterDict:

@@ -8,30 +8,33 @@ JAX package's ``train/steps.py``.
 The JAX step is a pure function that the caller jits; the port's runs
 eagerly and updates the state's parameters and moments in place (its
 returned `TrainState` holds the same `LM` and moment tensors, with the
-step advanced).  Encoder-decoder configurations raise naming ROADMAP
-Queue A13, as `transformer.init_lm` does.
+step advanced).  Encoder-decoder configurations (``cfg.enc_dec``) take
+`models.encdec`'s parameters, loss, forward and decode step, as the JAX
+package's steps do; their batches carry ``frames`` beside ``tokens`` and
+``targets``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, NamedTuple, Tuple
+from typing import Callable, Dict, Iterable, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as O
 
 
 class TrainState(NamedTuple):
-    params: T.LM
+    params: Union[T.LM, E.EncDec]
     opt: O.OptState
     step: torch.Tensor         # int32, 0-dim
 
 
-def _state(params: T.LM, dev: torch.device) -> TrainState:
+def _state(params, dev: torch.device) -> TrainState:
     return TrainState(params=params, opt=O.init(params),
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -39,9 +42,11 @@ def _state(params: T.LM, dev: torch.device) -> TrainState:
 def init_state(gen: torch.Generator, cfg: ModelConfig,
                device="cuda") -> TrainState:
     """Random parameters from ``gen`` (a generator on ``device``; see
-    `transformer.init_lm`), zero moments, step 0."""
+    `transformer.init_lm`, or `encdec.init_encdec` for an
+    encoder-decoder), zero moments, step 0."""
     dev = resolve_device(device)
-    return _state(T.init_lm(gen, cfg, dev), dev)
+    init = E.init_encdec if cfg.enc_dec else T.init_lm
+    return _state(init(gen, cfg, dev), dev)
 
 
 def abstract_state(cfg: ModelConfig) -> TrainState:
@@ -49,13 +54,12 @@ def abstract_state(cfg: ModelConfig) -> TrainState:
     no allocation (the JAX package's ``jax.eval_shape`` of
     ``init_state``)."""
     meta = torch.device("meta")
-    return _state(T.build_lm(None, cfg, meta), meta)
+    build = E.build_encdec if cfg.enc_dec else T.build_lm
+    return _state(build(None, cfg, meta), meta)
 
 
 def loss_fn_for(cfg: ModelConfig) -> Callable:
-    if cfg.enc_dec:
-        raise T._unported("the encoder-decoder stack")
-    return T.lm_loss
+    return E.lm_loss if cfg.enc_dec else T.lm_loss
 
 
 def load_state(state: TrainState, restored: TrainState) -> TrainState:
@@ -90,11 +94,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """Prefill = full forward over the prompt, logits out."""
+    """Prefill = full forward over the prompt, logits out (an
+    encoder-decoder's batch carries ``frames``)."""
+    fwd = E.forward_train if cfg.enc_dec else T.forward_train
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return T.forward_train(params, batch, cfg)
+        return fwd(params, batch, cfg)
 
     return prefill_step
 
@@ -102,15 +108,16 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """One-token serve step: (params, caches, tokens (B,1), pos) ->
     (logits, caches)."""
+    step = E.decode_step if cfg.enc_dec else T.decode_step
 
     @torch.no_grad()
     def decode(params, caches, tokens, pos):
-        return T.decode_step(params, caches, tokens, pos, cfg)
+        return step(params, caches, tokens, pos, cfg)
 
     return decode
 
 
-def eval_ppl(params: T.LM, batches: Iterable[Dict[str, torch.Tensor]],
+def eval_ppl(params, batches: Iterable[Dict[str, torch.Tensor]],
              cfg: ModelConfig) -> float:
     """Mean token NLL over a list of batches (examples/quickstart)."""
     loss_fn = loss_fn_for(cfg)

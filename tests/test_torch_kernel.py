@@ -105,44 +105,62 @@ class _BudgetLibrary:
         return 0
 
 
-# (window, M_pad, policy, words the library reports, None or the message)
+# (window, M_pad, policy, words the library reports, streams, bytes the
+# card has free, the instance and workspace bytes or the message)
 H100_OPTIN = 232448
+FREE = 80 * 10 ** 9
 DOMAIN_CASES = [
-    (2048, 2048, "mlml", 36928, None),
-    (1024, 4096, "nltr", 46144, None),
-    (1024, 8192, "ect", 78912, "window_size=1024 with M_pad=8192 needs "
-     "315648 bytes .78912 words. .*under ect, past the 232448 bytes .*"
-     "JAX reference has no cap.*backend='jax'.* no cap"),
-    (4096, 128, "minload", 25664, None),
+    (2048, 2048, "mlml", 36928, 140, FREE, ("shared", 0)),
+    (1024, 4096, "nltr", 46144, 140, FREE, ("shared", 0)),
+    (1024, 8192, "ect", 78912, 2, FREE, ("global", 2 * 315648)),
+    (4096, 128, "minload", 25664, 140, FREE, ("shared", 0)),
+    # the global instance's two limits: int32 indexing of the workspace's
+    # words, and the bytes the card has free
+    (1024, 8192, "ect", 78912, 27214, FREE,
+     "27214 streams of window_size=1024 with M_pad=8192 under ect, 315648 "
+     "bytes a stream .*need a workspace of 2147511168 words .*past the "
+     "2..31 words its int32 indexing reaches"),
+    (512, 16384, "mlml", 152128, 200, 10 ** 8,
+     "200 streams of window_size=512 with M_pad=16384 under mlml, 608512 "
+     "bytes a stream .*need a workspace of 121702400 bytes in device "
+     "memory, past the 100000000 bytes free"),
 ]
 
 
-@pytest.mark.parametrize("window,m_pad,policy,words,match", DOMAIN_CASES)
+@pytest.mark.parametrize("window,m_pad,policy,words,streams,free,want",
+                         DOMAIN_CASES)
 def test_stream_kernel_domain_is_stated(monkeypatch, window, m_pad, policy,
-                                        words, match):
-    """The CUDA stream kernel's one limit is a block's opt-in shared memory
-    (README): the check asks the library's ``sched_stream_budget`` for the
-    words a stream needs and the card's budget, and an input past it raises
-    naming both, that the eager engine (backend='jax') schedules it with no
-    cap and the reference has none.  The window and the server count have
-    no cap of their own; nothing falls back to the CPU."""
+                                        words, streams, free, want):
+    """The CUDA stream kernel's instance and limits (README): the check
+    asks the library's ``sched_stream_budget`` for the words a stream
+    needs and the card's opt-in shared memory a block; a stream that fits
+    takes the shared instance, one past it the global instance with a
+    workspace of its bytes times the streams.  No shape is refused for
+    shared memory: only a workspace whose words reach int32 indexing or
+    whose bytes pass the card's free memory raises, before any launch,
+    naming the limit.  The window and the server count have no cap of
+    their own; nothing falls back to the CPU."""
     lib = _BudgetLibrary(words, H100_OPTIN)
     monkeypatch.setattr(tkernel, "_library", lambda: lib)
+    monkeypatch.setattr(tkernel, "device_free_bytes", lambda: free)
     assert tkernel.stream_budget(policy, m_pad, window) == (4 * words,
                                                             H100_OPTIN)
-    if match is None:
-        tkernel.check_stream_domain(policy, m_pad, window)
+    if isinstance(want, tuple):
+        assert tkernel.check_stream_domain(policy, m_pad, window,
+                                           streams) == want
     else:
-        with pytest.raises(ValueError, match=match):
-            tkernel.check_stream_domain(policy, m_pad, window)
+        with pytest.raises(ValueError, match=want):
+            tkernel.check_stream_domain(policy, m_pad, window, streams)
     code = tkernel.POLICY_CODES[policy]
     assert lib.calls == [(code, m_pad, window)] * 2
 
 
 def test_stream_kernel_limit_is_the_shared_memory_budget():
     """No fixed cap is left: the wrappers hold no window or server limit,
-    and the CUDA source accepts a shape when one stream fits the device's
-    opt-in shared memory per block, read from the runtime."""
+    and the CUDA source picks the shared instance when one stream fits the
+    device's opt-in shared memory per block, read from the runtime, and
+    the global-memory instance (a template parameter, not a runtime
+    pointer switch) past it."""
     assert not hasattr(tkernel, "MAX_WINDOW")
     assert not hasattr(tkernel, "MAX_M_PAD")
     src = tkernel.SOURCE.read_text()
@@ -151,3 +169,4 @@ def test_stream_kernel_limit_is_the_shared_memory_budget():
     launch = src[src.index('extern "C" int sched_stream_launch'):]
     launch = launch[:launch.index("Params p;")]
     assert "1024" not in launch
+    assert "int GMEM>" in src and "p.gmem ? launch_instance<POLICY, 1>" in src

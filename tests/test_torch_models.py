@@ -43,9 +43,10 @@ from torch_jax_release import release_compiled_programs  # noqa: F401
 
 ARCHS = ["gemma-2b", "stablelm-1.6b", "h2o-danube-3-4b"]
 # the MoE architectures: tests/test_torch_moe.py; the state-space and
-# recurrent ones: tests/test_torch_ssm.py
+# recurrent ones: tests/test_torch_ssm.py; the encoder-decoder:
+# tests/test_torch_encdec.py
 PORTED = ARCHS + ["mixtral-8x22b", "llama4-scout-17b-a16e",
-                  "jamba-v0.1-52b", "xlstm-1.3b"]
+                  "jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny"]
 B, S, GEN = 2, 24, 4       # S past danube's reduced window (16)
 F32_TOL, BF16_TOL = 1e-4, 0.1
 
@@ -106,11 +107,14 @@ def test_model_config_from_fields_carries_every_config(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_blocks_raise_naming_roadmap(arch):
+    """The decoder-LM assembly refuses an encoder-decoder configuration,
+    naming where it is built: `models.encdec`'s ``init_encdec`` and
+    ``init_caches``."""
     cfg = interop.model_config_from_fields(
         dataclasses.asdict(jax_get_config(arch, reduced=True)))
-    with pytest.raises(NotImplementedError, match="Queue A13"):
+    with pytest.raises(NotImplementedError, match="encdec.init_encdec"):
         T.init_lm(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A13"):
+    with pytest.raises(NotImplementedError, match="encdec.init_caches"):
         T.init_caches(cfg, 1, 8, device="cpu")
 
 

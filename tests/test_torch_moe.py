@@ -132,7 +132,7 @@ def test_configs_match_jax_field_by_field(arch, reduced):
 
 
 def test_other_architectures_still_raise_naming_roadmap():
-    for arch in ("whisper-tiny", "qwen2-72b", "qwen2-vl-72b"):
+    for arch in ("qwen2-72b", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError, match="Queue A13"):
             get_config(arch)
 

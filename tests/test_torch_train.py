@@ -64,6 +64,7 @@ from repro_torch.io import IOClientConfig
 from repro_torch.io.striping import MB
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import (OptConfig, abstract_state, eval_ppl,
@@ -529,15 +530,20 @@ def test_launch_train_on_cpu_resumes_as_uninterrupted(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh_and_enc_dec():
+    """The launcher refuses a mesh (naming Queue A13) and, up front, an
+    encoder-decoder (its token batches carry no frames); the steps take
+    the encoder-decoder (`init_state`, `loss_fn_for`)."""
     with pytest.raises(NotImplementedError, match="Queue A13"):
         ttrain.build_mesh("2x4")
     assert ttrain.build_mesh("none") is None
     enc = interop.model_config_from_fields(
         dataclasses.asdict(jax_get_config("whisper-tiny", reduced=True)))
-    with pytest.raises(NotImplementedError, match="Queue A13"):
-        loss_fn_for(enc)
-    with pytest.raises(NotImplementedError, match="Queue A13"):
-        init_state(torch.Generator(), enc, device="cpu")
+    assert loss_fn_for(enc) is E.lm_loss
+    state = init_state(torch.Generator(), enc, device="cpu")
+    assert isinstance(state.params, E.EncDec) and int(state.step) == 0
+    with pytest.raises(NotImplementedError, match="carry no frames"):
+        ttrain.train(ttrain.parse_args(["--arch", "whisper-tiny",
+                                        "--reduced", "--device", "cpu"]))
 
 
 def test_abstract_state_allocates_nothing():
