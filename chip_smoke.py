@@ -9,8 +9,9 @@ tree and of the checkout at DIR, alternately (`compare_walls`);
 ``--host-path`` runs the host path's phase alone, ``--train-path``
 the training phase alone, ``--contract`` the contract checker's
 phase alone, ``--moe`` the Mixture-of-Experts phase alone, ``--ssm``
-the state-space and recurrent phase alone and ``--encdec`` the
-encoder-decoder phase alone (with the global-memory domain leg);
+the state-space and recurrent phase alone, ``--encdec`` the
+encoder-decoder phase alone (with the global-memory domain leg) and
+``--qwen2`` the qwen2 phase alone;
 ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
@@ -217,6 +218,25 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    (c) 6 train steps at 16 x 224 with the frames (loss falling, step
    time, tokens/s, peak memory, the optimizer's share; no kernel
    launched, counted) and the reduced twin's 3 steps card against CPU;
+   then the qwen2 phase (M-RoPE, the patch frontend; `--qwen2` alone):
+   (a) qwen2-72b at full width cut to 8 of 80 layers (9.51B parameters,
+   38.0 GB of f32; the card's free memory checked first) and (b)
+   qwen2-vl-72b cut to 4, each served through `serve.generate` (random
+   weights from seed 0, batch 4, prompt 512, 16 tokens; the VLM with
+   patch embeddings (4, 256, 8192) and (3, 4, 512) positions, the patch
+   slots on a 16 x 16 grid, shaped by `configs.shapes.input_specs`) with
+   the counts zeroed before and read after (one wgmma launch a layer,
+   nothing else): prefill (forward and replay) and decode s, tok/s, peak
+   memory, each flash call held to its plain version, the logits against
+   the `attention_ref` route in f32 and bf16, a decode step by
+   torch.profiler; then `apply_mrope` at the serve's q on the card
+   against the CPU, and the reduced qwen2-vl with patches and positions
+   in f32 card against CPU (forward, prefill caches, 4 decode steps); (c)
+   qwen2-vl-72b at full width cut to 1 layer, 6 train steps with its
+   patches and positions (batch 4 x 512; no kernel launched, counted) and the reduced twin's 3 steps card against
+   CPU; (d) the wgmma kernel at qwen2's heads (B 4, S 512, H 64/8, hd
+   128) and jamba's (H 32/8) against the plain version, queued beside
+   causal SDPA, with its bound;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -267,6 +287,7 @@ from repro_torch import data as tdata  # noqa: E402
 from repro_torch import io as tio  # noqa: E402
 from repro_torch import random  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import shapes  # noqa: E402
 from repro_torch.contractcheck import cudacheck, layer_of  # noqa: E402
 from repro_torch.contractcheck import run_check  # noqa: E402
 from repro_torch.core import analysis, engine, policy_core  # noqa: E402
@@ -283,6 +304,7 @@ from repro_torch.kernels.threefry import kernel as tfkernel  # noqa: E402
 from repro_torch.kernels.threefry import ops as tfops  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import encdec as E  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -2543,19 +2565,20 @@ def train_flops(cfg, tokens, recompute=False) -> float:
     return flops
 
 
-def run_train_full(card, cfg=None, label="train (a)") -> dict:
+def run_train_full(card, cfg=None, label="train (a)", batch=None) -> dict:
     """(a): gemma-2b at full width and depth (f32 weights, bf16 compute,
     remat="block"), or ``cfg``, 6 steps on one repeated batch: step time
     (median of steps 2-6, each between two synchronizes), tokens/s, the
     share of the bf16 dense peak, peak memory, kernels a step
     (torch.profiler), the optimizer's share of a step (`optimizer.update`
     alone, CUDA events, median of 3 on one set of gradients) and, for an
-    MoE configuration, the MoE terms of each step."""
+    MoE configuration, the MoE terms of each step.  ``batch``: the
+    repeated batch (default `train_batch`'s of step 0)."""
     cfg = cfg or get_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
     state, init_s = synced_s(lambda: tsteps.init_state(
         torch.Generator(device="cuda").manual_seed(0), cfg))
-    batch = train_batch(cfg)
+    batch = train_batch(cfg) if batch is None else batch
     step = tsteps.make_train_step(cfg, TRAIN_OPT)
     losses, gnorms, secs, moe_terms = [], [], [], []
     for _ in range(TRAIN_STEPS):
@@ -3829,29 +3852,29 @@ def encdec_replay(params, enc_out, prompts, cfg, cache_len):
     return caches
 
 
-def check_encdec_logits(params, frames, prompts, cfg, tokens):
-    """The serve's prefill logits again through the kernel and with
-    `attention_ref` in its place (`fops.flash_attention_plain`), in f32
-    compute (the SIMT kernel) and in the serve's bf16 (wgmma), held to
-    SERVE_F32_TOL and SERVE_BF16_REL_TOL of the largest f32 logit; the
-    first served token is the bf16 kernel logits' argmax."""
+def check_route_logits(label, cfg, forward, shape, tokens):
+    """A serve's prefill logits again, ``forward(run_cfg)``, through the
+    kernel and with `attention_ref` in its place
+    (`fops.flash_attention_plain`), in f32 compute (the SIMT kernel) and
+    in the serve's bf16 (wgmma), held to SERVE_F32_TOL and
+    SERVE_BF16_REL_TOL of the largest f32 logit; the first served token
+    is the bf16 kernel logits' argmax.  ``shape``: the prompts'."""
     logits = {}
     for compute in ("float32", "bfloat16"):
         run_cfg = dataclasses.replace(cfg, compute_dtype=compute,
                                       use_pallas_attn=True)
         with torch.no_grad():
-            enc_out = E.encode(params, frames, run_cfg)
-            kern = E.decode_forward(params, prompts, enc_out, run_cfg)
+            kern = forward(run_cfg)
             with mock.patch.object(fops, "flash_attention",
                                    fops.flash_attention_plain):
-                ref = E.decode_forward(params, prompts, enc_out, run_cfg)
+                ref = forward(run_cfg)
         for x in (kern, ref):
-            if x.shape != (*prompts.shape, cfg.padded_vocab) or not bool(
+            if x.shape != (*shape, cfg.padded_vocab) or not bool(
                     torch.isfinite(x).all()):
-                fail(f"whisper prefill logits ({compute}) have shape "
+                fail(f"{label} prefill logits ({compute}) have shape "
                      f"{tuple(x.shape)} or non-finite values")
         logits[compute] = (kern.float(), ref.float())
-        del kern, ref, enc_out
+        del kern, ref
     (k32, r32), (k16, r16) = logits["float32"], logits["bfloat16"]
     scale = r32.abs().max().item()
     err32 = (k32 - r32).abs().max().item()
@@ -3860,14 +3883,17 @@ def check_encdec_logits(params, frames, prompts, cfg, tokens):
     ok = err32 <= SERVE_F32_TOL and err16 <= tol16
     print(f"  prefill logits, kernel against attention_ref: f32 compute max "
           f"abs err {err32:.4g} (tolerance {SERVE_F32_TOL:g}), bf16 "
-          f"{err16:.4g} (tolerance {tol16:.4g} = {SERVE_BF16_REL_TOL:g} of the largest "
-          f"f32 logit {scale:.4g}) -> {'ok' if ok else 'FAIL'}")
+          f"{err16:.4g} (tolerance {tol16:.4g} = {SERVE_BF16_REL_TOL:g} of "
+          f"the largest f32 logit {scale:.4g}); each bf16 route against the "
+          f"f32 one: kernel {(k16 - r32).abs().max().item():.4g}, "
+          f"attention_ref {(r16 - r32).abs().max().item():.4g} -> "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        fail("whisper's prefill logits through the kernel disagree with the "
-             "attention_ref route")
+        fail(f"{label}'s prefill logits through the kernel disagree with "
+             "the attention_ref route")
     if not (torch.argmax(k16[:, -1], dim=-1).cpu().numpy()
             == tokens[:, 0]).all():
-        fail("whisper's first served token is not the prefill logits' "
+        fail(f"{label}'s first served token is not the prefill logits' "
              "argmax")
     del logits, k32, r32, k16, r16
     torch.cuda.empty_cache()
@@ -3937,7 +3963,8 @@ def run_encdec_serve(card):
           f" each against the plain version on its inputs, max abs err "
           f"{err:.3g} (tolerance {FLASH_TOL['bfloat16']:g})")
     del logits
-    check_encdec_logits(params, frames, prompts, cfg, gen)
+    check_route_logits("whisper", cfg, lambda c: E.decode_forward(
+        params, prompts, E.encode(params, frames, c), c), prompts.shape, gen)
 
     tok = prompts[:, :1]
     pos = ENCDEC_PROMPT
@@ -4075,6 +4102,328 @@ def run_encdec_path(dev, card, with_domain):
     print(f"encdec phase on {card}: {time.perf_counter() - t0:.1f} s (a) "
           f"{a_s:.1f} s, (b) {b_s:.1f} s, (c) {c_s:.1f} s, (d) {d_s:.1f} s")
     return counts, max(err, err_b), rows
+
+
+# -- the qwen2 family: qwen2-72b, and qwen2-vl-72b with M-RoPE and patches ----
+
+# (arch, layers kept) of the full-width serves: a qwen2 layer holds
+# 877,684,736 parameters (3.51 GB of f32), the embedding and the untied
+# head 1,245,708,288 each (4.98 GB); 8 layers are 9.51B (38.0 GB)
+QWEN2_SERVES = (("qwen2-72b", 8), ("qwen2-vl-72b", 4))
+QWEN2_VL = QWEN2_SERVES[1][0]
+QWEN2_BATCH, QWEN2_PROMPT, QWEN2_GEN = MOE_BATCH, MOE_PROMPT, MOE_GEN
+# trained cut to 1 layer at batch 4 x 512: 3.37B parameters, p, g, m and
+# v 53.9 GB, 64.0 GB at peak on an H100
+QWEN2_TRAIN_LAYERS = 1
+# the reduced twin card against CPU: batch 2 x 64 (32 patch slots)
+QWEN2_PARITY_B, QWEN2_PARITY_S, QWEN2_DECODE_STEPS = 2, 64, 4
+# (label, B, S, H, KV, hd) of the wgmma kernel, causal, bf16: qwen2's
+# prefill heads (GQA 8) and jamba's (GQA 4, its serve's one attention
+# layer)
+QWEN2_FLASH = (("qwen2", QWEN2_BATCH, QWEN2_PROMPT, 64, 8, 128),
+               ("jamba", QWEN2_BATCH, QWEN2_PROMPT, 32, 8, 128))
+# M-RoPE on the card against the CPU, float32: one product a slot for
+# the angle in both, then CUDA's sin/cos against the CPU's at angles up
+# to ~270 rad (the libraries' range reductions differ by a few ulps of
+# the result)
+MROPE_CARD_TOL = 1e-5
+
+
+def vl_inputs(cfg, b, s, device, seed=4):
+    """A VLM batch's inputs beside its tokens, shaped and typed as
+    `configs.shapes.input_specs` gives them for a (b, s) prefill: the
+    patch embeddings (b, min(1024, s // 2), d_model) float32, standard
+    normal from ``seed`` on the CPU, and the (3, b, s) int32 M-RoPE
+    positions: the patch slots on an h x w grid (temporal 0, height the
+    row, width the column), the text after them at one position on all
+    three streams past the grid's largest.  The package builds no rope
+    index; this is Qwen2-VL's layout of one image, then text."""
+    (spec,), _ = shapes.input_specs(
+        cfg, shapes.ShapeSpec("serve", "prefill", s, b))
+    n_patch = spec["patch_embeds"].shape[1]
+    h = next(d for d in range(int(n_patch ** 0.5), 0, -1) if n_patch % d == 0)
+    w = n_patch // h
+    pos = torch.zeros(spec["positions"].shape, dtype=spec["positions"].dtype)
+    pos[1, :, :n_patch] = torch.arange(h).repeat_interleave(w)
+    pos[2, :, :n_patch] = torch.arange(w).repeat(h)
+    pos[:, :, n_patch:] = torch.arange(s - n_patch) + max(h, w)
+    patches = torch.randn(spec["patch_embeds"].shape,
+                          dtype=spec["patch_embeds"].dtype,
+                          generator=torch.Generator().manual_seed(seed))
+    return {"positions": pos.to(device), "patch_embeds": patches.to(device)}
+
+
+def run_qwen2_serve(arch, n_layers, card):
+    """(a)/(b): `serve.generate` of ``arch`` at full width cut to
+    ``n_layers`` (random f32 weights from seed 0, bf16 compute; the
+    card's free memory checked first), batch 4 x 512 x 16, the VLM with
+    `vl_inputs`, counts zeroed just before and read just after: one
+    wgmma launch a layer in the prefill, no other kernel of the port.
+    Then the prefill's forward again with each flash call held to its
+    plain version (`held_flash`), the forward's and the replay's seconds,
+    the logits against the attention_ref route (`check_route_logits`) and one
+    decode step by torch.profiler.  Returns (the wgmma launches, the held
+    calls' largest error, the run's numbers)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    label = f"qwen2 serve {arch} cut to {n_layers} layers"
+    meta = T.build_lm(None, cfg, torch.device("meta"))
+    n_tensor = sum(p.numel() for p in meta.parameters())
+    check_card_room(label, tensor_bytes(meta.parameters()))
+    del meta
+    torch.cuda.reset_peak_memory_stats()
+    (cfg, params, prompts), init_s = synced_s(
+        lambda: moe_serve_setup(arch, n_layers))
+    extra = vl_inputs(cfg, QWEN2_BATCH, QWEN2_PROMPT, "cuda") \
+        if cfg.mrope else {}
+    zero_counts()
+    tokens, prefill_s, decode_s = serve.generate(params, prompts, cfg,
+                                                 QWEN2_GEN, **extra)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=n_layers):
+        fail(f"{arch} serve launched {counts}, expected {n_layers} "
+             "flash_attention_wgmma launches and no other")
+    peak = torch.cuda.max_memory_allocated()
+    gen = tokens.cpu().numpy()
+    if gen.shape != (QWEN2_BATCH, QWEN2_GEN) or not (
+            (gen >= 0) & (gen < cfg.padded_vocab)).all():
+        fail(f"{arch} serve returned tokens of shape {gen.shape} outside "
+             f"[0, {cfg.padded_vocab})")
+    tok_s = QWEN2_BATCH * (QWEN2_GEN - 1) / decode_s
+    inputs = ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                       for k, v in extra.items()) or "tokens alone"
+    print(f"{label} on {card}: {n_tensor} parameters in its tensors "
+          f"({n_tensor * 4} bytes of f32), drawn in {init_s:.3f} s; batch "
+          f"{QWEN2_BATCH}, prompt {QWEN2_PROMPT} ({inputs}), gen "
+          f"{QWEN2_GEN}: prefill {prefill_s:.4f} s, decode {decode_s:.4f} s "
+          f"({tok_s:.2f} tok/s over {QWEN2_BATCH * (QWEN2_GEN - 1)} decoded "
+          f"tokens); peak memory {peak} bytes ({peak / 1e9:.3f} GB); "
+          f"launches {counts}")
+    print(f"  tokens: {gen.tolist()}")
+
+    batch = dict(tokens=prompts, **extra)
+    checked = []
+    run_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    with torch.no_grad(), mock.patch.object(fops, "flash_attention",
+                                            held_flash(checked)):
+        logits, fwd_s = synced_s(lambda: T.forward_train(params, batch,
+                                                         run_cfg))
+    routes = sorted({r for r, _ in checked})
+    err = max((e for _, e in checked), default=0.0)
+    if len(checked) != n_layers or routes != ["wgmma"]:
+        fail(f"{arch}'s prefill ran flash attention {len(checked)} times "
+             f"through {routes}, expected {n_layers} through wgmma")
+    if not (torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            == gen[:, 0]).all():
+        fail(f"{arch}: the first served token is not the prefill's argmax")
+    print(f"  prefill forward {fwd_s:.4f} s, replay {prefill_s - fwd_s:.4f} s"
+          f" ({(prefill_s - fwd_s) / QWEN2_PROMPT * 1e3:.2f} ms a token) of "
+          f"the prefill's {prefill_s:.4f} s; flash calls {len(checked)} "
+          f"through {routes}, each against the plain version on its inputs,"
+          f" max abs err {err:.3g} (tolerance {FLASH_TOL['bfloat16']:g})")
+    del logits
+    check_route_logits(arch, cfg, lambda c: T.forward_train(params, batch, c),
+                       prompts.shape, gen)
+
+    caches = T.init_caches(cfg, QWEN2_BATCH, QWEN2_PROMPT + QWEN2_GEN)
+    tok = prompts[:, :1]
+    T.decode_step(params, caches, tok, 0, cfg)
+    (_, _), step_s = synced_s(lambda: T.decode_step(params, caches, tok, 1,
+                                                    cfg))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall_s = synced_s(lambda: T.decode_step(params, caches, tok, 2,
+                                                   cfg))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in events)
+    busy_ms = sum(device_ms(e) for e in events)
+    print(f"  one decode step {step_s * 1e3:.3f} ms; profiled step: "
+          f"{n_kernels} kernels, device busy {busy_ms:.3f} ms of "
+          f"{wall_s * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (wall_s * 1e3):.4f})")
+    for e in sorted(events, key=device_ms, reverse=True)[:5]:
+        print(f"    {device_ms(e):9.3f} ms  {e.count:5d} x  {e.key[:90]}")
+    del params, prompts, caches, batch, extra
+    torch.cuda.empty_cache()
+    return counts["flash_attention_wgmma"], err
+
+
+def check_mrope_card(card):
+    """(b): `apply_mrope` at qwen2-vl-72b's full heads (q of the serve's
+    prefill: (4, 512, 64, 128), sections (16, 24, 24), theta 1e6) with
+    the serve's positions, float32 on the card against the CPU, within
+    MROPE_CARD_TOL; bf16 in and out within one bf16 step of the largest
+    |q|."""
+    cfg = get_config(QWEN2_VL)
+    pos = vl_inputs(cfg, QWEN2_BATCH, QWEN2_PROMPT, "cpu")["positions"]
+    q = torch.randn((QWEN2_BATCH, QWEN2_PROMPT, cfg.n_heads, cfg.hd),
+                    generator=torch.Generator().manual_seed(6))
+
+    def rope(x, p):
+        return L.apply_mrope(x, p, cfg.rope_theta, cfg.mrope_sections)
+
+    want = rope(q, pos)
+    got = rope(q.cuda(), pos.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    got16 = rope(q.cuda().bfloat16(), pos.cuda()).float().cpu()
+    err16 = (got16 - rope(q.bfloat16(), pos).float()).abs().max().item()
+    tol16 = 2 ** -7 * q.abs().max().item()
+    ok = err <= MROPE_CARD_TOL and err16 <= tol16
+    widths = L.mrope_widths(cfg.hd, cfg.mrope_sections)
+    print(f"qwen2 (b) apply_mrope at {tuple(q.shape)}, sections "
+          f"{cfg.mrope_sections} (widths {widths}), positions up to "
+          f"{int(pos.max())} on {card} against the CPU: f32 max abs diff "
+          f"{err:.3g} (tolerance {MROPE_CARD_TOL:g}), bf16 {err16:.3g} "
+          f"(tolerance {tol16:.3g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("M-RoPE on the card disagrees with the CPU")
+
+
+def check_qwen2_parity(card):
+    """(b): the reduced qwen2-vl-72b in float32, random weights drawn on
+    the CPU from seed 0 and copied to the card, batch 2 x 64 with its
+    patches and positions (`vl_inputs`): `forward_train`, the
+    `forward_prefill` logits and every cache field, and the logits of 4
+    decode steps on the card against the CPU (the plain flash version
+    there, the SIMT kernel here), within 1e-4 of the largest value
+    (`within`)."""
+    cfg = dataclasses.replace(get_config(QWEN2_VL, reduced=True),
+                              compute_dtype="float32")
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (QWEN2_PARITY_B, QWEN2_PARITY_S)))
+    run, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        params = T.init_lm(torch.Generator().manual_seed(0), cfg,
+                           device="cpu").to(dev)
+        batch = dict(tokens=prompts.to(dev), **vl_inputs(
+            cfg, QWEN2_PARITY_B, QWEN2_PARITY_S, dev))
+        with torch.no_grad():
+            train = T.forward_train(params, batch, cfg)
+        logits, caches = T.forward_prefill(
+            params, batch, dataclasses.replace(cfg, use_pallas_attn=True),
+            cache_len=QWEN2_PARITY_S + QWEN2_DECODE_STEPS)
+        steps, tok = [], torch.argmax(logits[:, -1:], dim=-1)
+        for i in range(QWEN2_DECODE_STEPS):
+            lg, caches = T.decode_step(params, caches, tok,
+                                       QWEN2_PARITY_S + i, cfg)
+            steps.append(lg)
+            tok = torch.argmax(lg, dim=-1)
+        run[dev] = (train, logits, caches, torch.cat(steps, dim=1))
+        secs[dev] = time.perf_counter() - t0
+    (tc, lc, cc, dc), (th, lh, ch, dh) = run["cuda"], run["cpu"]
+    checks = [("forward_train", *within(tc, th)),
+              ("prefill logits", *within(lc, lh)),
+              ("decode logits", *within(dc, dh))]
+    for li, (a, b) in enumerate(zip(cc, ch)):
+        for name in b:
+            checks.append((f"layer {li} {name}", *within(a[name], b[name])))
+    bad = [c for c in checks if not c[1] <= c[2]]
+    worst = max(checks, key=lambda c: c[1] / c[2])
+    print(f"qwen2 (b) {cfg.name} f32 with patches and positions on {card} "
+          f"against the CPU: {len(checks)} comparisons (forward_train, "
+          f"prefill logits, {QWEN2_DECODE_STEPS} decode steps' logits, "
+          f"{len(cc)} layers' cache fields); worst {worst[0]}: max abs diff "
+          f"{worst[1]:.3g} (tolerance {worst[2]:.3g}); card "
+          f"{secs['cuda']:.2f} s, CPU {secs['cpu']:.2f} s -> "
+          f"{'ok' if not bad else 'FAIL'}")
+    if bad:
+        fail(f"{cfg.name} on the card disagrees with the CPU: {bad[:5]}")
+
+
+def qwen2_batch(cfg, step, device, seq=TRAIN_SEQ, batch=TRAIN_BATCH):
+    """A VLM train batch: `SyntheticTokens`' tokens and targets, and
+    `vl_inputs` (patches from ``100 + step``), the same on the card and
+    the CPU."""
+    out = tdata.SyntheticTokens(tdata.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq,
+        global_batch=batch)).batch_at(step, device)
+    out.update(vl_inputs(cfg, batch, seq, device, seed=100 + step))
+    return out
+
+
+def run_qwen2_train(card):
+    """(c): qwen2-vl-72b at full width cut to 1 layer, 6 steps on one
+    batch 4 x 512 with its patches and positions (`run_train_full`; no
+    kernel launched, counted), then the reduced twin's 3 steps in f32 on
+    the card against the CPU (`run_train_parity`)."""
+    cfg = dataclasses.replace(get_config(QWEN2_VL),
+                              n_layers=QWEN2_TRAIN_LAYERS)
+    zero_counts()
+    run_train_full(card, cfg, label="qwen2 (c)",
+                   batch=qwen2_batch(cfg, 0, "cuda"))
+    counts = all_counts()
+    if any(counts.values()):
+        fail(f"{cfg.name}'s train steps launched {counts}")
+    print(f"qwen2 (c) training: launches {counts}")
+    run_train_parity(card, QWEN2_VL, label="qwen2 (c)", batch_fn=qwen2_batch)
+
+
+def time_qwen2_flash(dev, card):
+    """(d): the wgmma kernel at QWEN2_FLASH's heads (causal, bf16), each
+    against the plain version (`check_wgmma_case`), timed queued (median
+    of 5 `steady_ms` readings) beside causal SDPA with ``enable_gqa``
+    (`sdpa_yardstick`), the plain version back to back, and the bound
+    (`flash_bound`).  Returns (largest error, one row per shape)."""
+    smem, blocks = fkernel.wgmma_occupancy(128)
+    worst, rows = 0.0, []
+    for i, (label, b, s, h, kv, hd) in enumerate(QWEN2_FLASH):
+        case = (f"{label} heads", b, s, h, kv, hd, None, None, False)
+        q, k, v, got, err = check_wgmma_case(case, dev, 540 + i,
+                                             fops.flash_attention_plain)
+        worst = max(worst, err)
+        lib_label, lib, to_bshd = sdpa_yardstick(q, k, v, None, None, False)
+        lib_err = (to_bshd(lib()).float() - got.float()).abs().max().item()
+        q_ms = steady_ms(queued_ms, lambda: fops.flash_attention(q, k, v))
+        l_ms = steady_ms(queued_ms, lib)
+        plain_ms = timed_ms(lambda: fops.flash_attention_plain(q, k, v),
+                            reps=5)
+        bound_ms, bound_by, nbytes, flops = flash_bound(b, s, h, kv, hd)
+        print(f"  timing on {card}, queued, median of 5 [range]: wgmma "
+              f"{q_ms[0]:.5f} [{q_ms[1]:.5f}-{q_ms[2]:.5f}] ms"
+              f"{held_note(q_ms)}, {lib_label} {l_ms[0]:.5f} "
+              f"[{l_ms[1]:.5f}-{l_ms[2]:.5f}] ms{held_note(l_ms)} (vs wgmma "
+              f"max abs {lib_err:.3g}), plain {plain_ms:.4f} ms (back to "
+              f"back); bound {bound_ms:.5f} ms ({bound_by}: {nbytes} bytes, "
+              f"{flops} FLOP); wgmma {q_ms[0] / l_ms[0]:.2f}x SDPA's time, "
+              f"{bound_ms / q_ms[0]:.3f} of its bound, "
+              f"{flops / q_ms[0] / 1e9:.1f} TFLOP/s; {smem} bytes of shared "
+              f"memory a block, {blocks} blocks per SM at hd 128")
+        rows.append(dict(case=case[0], b=b, s=s, heads=f"{h}/{kv}", hd=hd,
+                         max_abs_err=err, ms=q_ms[0], plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library=lib_label, library_ms=l_ms[0]))
+        del q, k, v, got, lib, to_bshd
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+def run_qwen2_path(dev, card):
+    """The qwen2 phase: (a) qwen2-72b served at full width (8 layers),
+    (b) qwen2-vl-72b served (4 layers) with patches and M-RoPE positions,
+    M-RoPE and the reduced twin on the card against the CPU, (c)
+    qwen2-vl-72b trained (1 layer), (d) the wgmma kernel at qwen2's and
+    jamba's heads beside SDPA.  Returns (each serve's wgmma launches, the
+    largest flash error, the (d) rows)."""
+    t0 = time.perf_counter()
+    launches, err, part_s = {}, 0.0, []
+    for arch, n_layers in QWEN2_SERVES:
+        (launches[arch], e), sec = synced_s(
+            lambda: run_qwen2_serve(arch, n_layers, card))
+        err = max(err, e)
+        part_s.append(sec)
+    part_s[-1] += synced_s(lambda: (check_mrope_card(card),
+                                    check_qwen2_parity(card)))[1]
+    zero_counts()
+    part_s.append(synced_s(lambda: run_qwen2_train(card))[1])
+    (err_d, rows), d_s = synced_s(lambda: time_qwen2_flash(dev, card))
+    print(f"qwen2 phase on {card}: {time.perf_counter() - t0:.1f} s (a) "
+          f"{part_s[0]:.1f} s, (b) {part_s[1]:.1f} s, (c) {part_s[2]:.1f} s,"
+          f" (d) {d_s:.1f} s")
+    return launches, max(err, err_d), rows
 
 
 def time_ablate_split(cfg, log, pols, dev, card):
@@ -4292,6 +4641,7 @@ def main() -> None:
     ssm_launches, err_ssm = run_ssm_path(dev, card)
     encdec_counts, err_encdec, encdec_rows = run_encdec_path(
         dev, card, with_domain=False)
+    qwen2_launches, err_qwen2, qwen2_rows = run_qwen2_path(dev, card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -4348,6 +4698,8 @@ def main() -> None:
              ssm_max_abs_err=err_ssm,
              encdec_serve_launches=encdec_counts["flash_attention_wgmma"],
              encdec_max_abs_err=err_encdec, encdec_shapes=encdec_rows,
+             qwen2_serve_launches=qwen2_launches,
+             qwen2_max_abs_err=err_qwen2, qwen2_shapes=qwen2_rows,
              **t_flash["wgmma"]),
         dict(name="threefry2x32", route="cuda",
              source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
@@ -4362,7 +4714,8 @@ def main() -> None:
 
 def main_phase(flag: str) -> None:
     """`python3 chip_smoke.py --host-path`, `--train-path`,
-    `--contract`, `--moe`, `--ssm` or `--encdec`: that phase alone."""
+    `--contract`, `--moe`, `--ssm`, `--encdec` or `--qwen2`: that phase
+    alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
@@ -4380,6 +4733,11 @@ def main_phase(flag: str) -> None:
         with ThreadPoolExecutor(len(sources)) as pool:
             list(pool.map(_build.build, sources))
         run_encdec_path(torch.device("cuda"), card, with_domain=True)
+    elif flag == "--qwen2":
+        sources = (fkernel.SOURCE, fkernel.WGMMA_SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(_build.build, sources))
+        run_qwen2_path(torch.device("cuda"), card)
     else:
         run_train_path(card)
     print(json.dumps({"ok": True, "device": {
@@ -4393,7 +4751,8 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
-                          ["--moe"], ["--ssm"], ["--encdec"]):
+                          ["--moe"], ["--ssm"], ["--encdec"],
+                          ["--qwen2"]):
         main_phase(sys.argv[1])
     else:
         main()

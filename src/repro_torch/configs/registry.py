@@ -1,11 +1,10 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (+ reduced twin).
 
-The ids are the JAX package's.  The three dense attention-only
-architectures, the two attention + MoE ones (mixtral, llama4), the
-mamba + attention + MoE hybrid (jamba), the xLSTM (xlstm) and the
-encoder-decoder (whisper-tiny, `models.encdec`) run in the port; the
-others need parts the port has not ported yet and raise naming their
-ROADMAP item.
+The ids are the JAX package's, and every one runs in the port: the
+dense attention-only architectures (qwen2-72b; qwen2-vl-72b with M-RoPE
+and the stub patch frontend), the two attention + MoE ones (mixtral,
+llama4), the mamba + attention + MoE hybrid (jamba), the xLSTM (xlstm)
+and the encoder-decoder (whisper-tiny, `models.encdec`).
 """
 
 from __future__ import annotations
@@ -24,22 +23,14 @@ _MODULES: Dict[str, str] = {
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
 }
 
-# what each architecture not yet in the port waits for
-_UNPORTED: Dict[str, str] = {
-    "qwen2-72b": "the sharded multi-card stack (a 72B model)",
-    "qwen2-vl-72b": "M-RoPE and the sharded multi-card stack",
-}
-
-ARCH_IDS: List[str] = list(_MODULES) + list(_UNPORTED)
+ARCH_IDS: List[str] = list(_MODULES)
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch} needs {_UNPORTED[arch]}, not ported yet "
-            "(ROADMAP Queue A13)")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     mod = importlib.import_module(_MODULES[arch])

@@ -15,10 +15,12 @@
 // Numerics.  Scores are the bf16 products summed in f32 by the tensor
 // cores; the 1/sqrt(hd) scale is applied to them in f32 after the product
 // (the JAX kernel scales q in f32 before it: a rounding difference only).
-// l sums the f32 probabilities.  The probabilities are rounded to bf16 only
-// as the A operand of the P.V product: the one numerical change from the
-// JAX kernel, which keeps p in f32 (bounded in tests/test_torch_flash_route.py
-// by emulating this arithmetic on the CPU against the JAX attention_ref).
+// l sums the f32 probabilities.  The P.V product takes P as two bf16 A
+// operands, its bf16 rounding and the rest rounded to bf16 (each p to
+// 2^-18 of itself; the JAX kernel keeps p in f32).  Rounding P once to bf16
+// moves a bf16 output of 4 or more by one step (0.031) against the plain
+// version at qwen2-72b's activations.  The arithmetic is emulated on the CPU
+// in tests/test_torch_flash_route.py against the JAX attention_ref.
 //
 // Design.  One block of 256 threads per (128 query rows, batch*head), the
 // causally heaviest query tiles launched first; two warpgroups, each owning
@@ -38,15 +40,17 @@
 //     edge or the S padding crosses.  A warpgroup skips the products of a
 //     tile that its own 64 rows do not reach (the same test at 64 rows).
 //   * O += P.V by wgmma with P from registers (the f32 score accumulator
-//     converted in place to bf16 pairs has wgmma's A-fragment layout) and V
+//     converted in place to bf16 pairs has wgmma's A-fragment layout; two
+//     products a k16 step, P's bf16 pairs and then the rest's) and V
 //     MN-major from shared memory (transpose bit); O stays in f32 registers,
 //     64 x D per warpgroup.
 //   * The output goes back through the warpgroup's Q buffer (swizzled as a
 //     TMA box) and a TMA store, which drops rows past S and columns past hd.
 // Shared memory at D = 256: Q 64 KB plus two stages of K and V, 128 KB: one
-// block per SM; at D <= 128 it is 96 KB or less, room for two blocks (the
-// launch bounds ask the registers for two at D = 64 only; O alone takes
-// D / 2 registers a thread).
+// block per SM; at D <= 128 it is 96 KB or less, room for two blocks.  The
+// launch bounds ask the registers for two there, 128 a thread (O alone
+// takes D / 2, P's two operands 32): at D = 128 that costs 36 bytes of
+// spill stores, and one block an SM took 1.45x the time at qwen2's heads.
 //
 // Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at the serving shape (B=4,
 // S=512, H=8, KV=1, hd=256, causal) one call moves 18.9 MB, 5.6 us, and does
@@ -237,11 +241,20 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// What the bf16 pair ``pair`` of (lo, hi) leaves out, as a bf16 pair: the
+// differences are exact in f32, and pair + rest holds each value to 2^-18
+// of itself.
+__device__ __forceinline__ uint32_t bf16_rest(float lo, float hi,
+                                              uint32_t pair) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&pair);
+  return bf16_pair(lo - __low2float(v), hi - __high2float(v));
+}
+
 // -- the kernel ------------------------------------------------------------
 
 // NA = 64-column boxes per head row (the head dim padded to D = 64 NA).
 template <int NA>
-__global__ void __launch_bounds__(THREADS, NA == 1 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, NA <= 2 ? 2 : 1)
     flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
@@ -326,7 +339,9 @@ __global__ void __launch_bounds__(THREADS, NA == 1 ? 2 : 1)
     __syncwarp();
     const bool live = wg_rows && tile_live(p, q_wg, WG_ROWS, k_start);
 
-    uint32_t pa[16];  // P as bf16 pairs: the A fragments of four k16 steps
+    // P as bf16 pairs, the A fragments of four k16 steps: pa its bf16
+    // rounding, pl the rest (p - pa) rounded to bf16
+    uint32_t pa[16], pl[16];
     float al0 = 1.f, al1 = 1.f;
     mbar_wait(bar_q + 8 + 8 * st, parity);
     if (live) {
@@ -383,6 +398,7 @@ __global__ void __launch_bounds__(THREADS, NA == 1 ? 2 : 1)
         if (second) ps1 += x0 + x1;
         else ps0 += x0 + x1;
         pa[j / 2] = bf16_pair(x0, x1);
+        pl[j / 2] = bf16_rest(x0, x1, pa[j / 2]);
       }
       l0 = l0 * al0 + ps0;
       l1 = l1 * al1 + ps1;
@@ -405,6 +421,8 @@ __global__ void __launch_bounds__(THREADS, NA == 1 ? 2 : 1)
           const uint32_t off = ((st * NA + a) * BOX_BYTES + kk * 2048) >> 4;
           wgmma_rs(o[a], pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                    pa[4 * kk + 3], v_desc + off);
+          wgmma_rs(o[a], pl[4 * kk], pl[4 * kk + 1], pl[4 * kk + 2],
+                   pl[4 * kk + 3], v_desc + off);
         }
       }
       wgmma_commit();

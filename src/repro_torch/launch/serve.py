@@ -13,7 +13,9 @@ argmax of the prefill's last logits, then ``gen - 1`` greedy
 encoder-decoder (whisper-tiny) takes stub frames (B, enc_seq, d) from
 their own seeded stream (`stub_frames`), encodes them once and serves
 through `models.encdec` (its decoder's self attention on the flash
-kernel).
+kernel).  A VLM (qwen2-vl) is served on its tokens alone, each M-RoPE
+stream at the token's position, as the JAX package's serve does;
+`generate` takes a batch's positions and patch embeddings.
 """
 
 from __future__ import annotations
@@ -42,14 +44,20 @@ def _sync(dev: torch.device) -> None:
 
 @torch.no_grad()
 def generate(params, prompts: torch.Tensor, cfg: ModelConfig, gen: int,
-             frames=None):
+             frames=None, positions=None, patch_embeds=None):
     """Greedy generation of ``gen`` tokens after ``prompts`` (B, S), an
-    encoder-decoder's against ``frames`` (B, S_enc, d).  Returns (tokens
-    (B, gen) int64, prefill seconds, decode seconds), each phase ended by
-    a synchronize on the card."""
+    encoder-decoder's against ``frames`` (B, S_enc, d).  A VLM's batch
+    may carry M-RoPE ``positions`` (3, B, S) and ``patch_embeds`` (B, P,
+    d) for the prefill's forward (`transformer.forward_prefill`, whose
+    caches hold the text alone).  Returns (tokens (B, gen) int64, prefill
+    seconds, decode seconds), each phase ended by a synchronize on the
+    card."""
     dev = prompts.device
     s = prompts.shape[1]
     batch, prefill = {"tokens": prompts}, T.forward_prefill
+    for name, x in (("positions", positions), ("patch_embeds", patch_embeds)):
+        if x is not None:
+            batch[name] = x
     if cfg.enc_dec:
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder: pass its "

@@ -84,7 +84,7 @@ def out_proj(p: Params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def maybe_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                use_rope: bool = True) -> torch.Tensor:
-    """RoPE / partial rotary (M-RoPE raises: not ported yet)."""
+    """RoPE / partial rotary, or M-RoPE over (3, B, S) positions."""
     if not (cfg.use_rope and use_rope):
         return x
     if cfg.mrope:
@@ -208,7 +208,9 @@ def decode_attend(p: Params, x1: torch.Tensor, cache: Params, pos: int,
     size = cache["k"].shape[1]
     q = project_q(p, x1, cfg)
     k1, v1 = project_kv(p, x1, cfg)
-    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x1.device)
+    # M-RoPE turns all three streams by the one position
+    shape = (3, b, 1) if cfg.mrope else (b, 1)
+    pos_b = torch.full(shape, pos, dtype=torch.int32, device=x1.device)
     q = maybe_rope(q, pos_b, cfg, use_rope)
     k1 = maybe_rope(k1, pos_b, cfg, use_rope)
     slot = pos % size

@@ -6,9 +6,8 @@ configuration carries across field by field (`interop.
 model_config_from_fields`); only `ModelConfig.cdtype`/`pdtype` return
 ``torch.dtype``s.  The port runs every block kind below, the attention
 and mamba blocks with a dense MLP or a Mixture-of-Experts FFN
-(`MoEConfig`); the encoder-decoder fields are described here so every
-configuration of the registry can be expressed, and raise where a model
-would run them (ROADMAP Queue A13).
+(`MoEConfig`), M-RoPE (``mrope``) and the encoder-decoder
+(`models.encdec`), so every configuration of the registry runs.
 
 Layer layout is a repeating *group pattern*: a tuple of block kinds of
 length G; the stack is ``n_layers / G`` groups.  Block kinds: ``"attn"``

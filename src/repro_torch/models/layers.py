@@ -11,7 +11,7 @@ rotary math run in float32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,10 +123,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
-def apply_mrope(x, positions3, theta, sections):
-    """Qwen2-VL M-RoPE waits for that model's slice."""
-    raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                              "(ROADMAP Queue A13)")
+def mrope_widths(hd: int, sections: Tuple[int, int, int]) -> List[int]:
+    """The (t, h, w) widths of M-RoPE's ``hd // 2`` frequency slots:
+    each section scaled to the half head dim and rounded (Python's
+    ``round``), the last taking what the others leave."""
+    half = hd // 2
+    scale = half / sum(sections)
+    widths = [int(round(s * scale)) for s in sections]
+    widths[-1] = half - sum(widths[:-1])
+    return widths
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: head_dim/2 frequency slots split into (t, h, w)
+    sections (`mrope_widths`), each rotated by its own position stream;
+    the whole head dim turns.
+
+    x: (B, S, H, hd); positions3: (3, B, S).
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)          # (half,)
+    slot = torch.cat([torch.full((w,), comp, dtype=torch.long)
+                      for comp, w in enumerate(mrope_widths(hd, sections))])
+    pos = positions3.float()[slot.to(positions3.device)]    # (half, B, S)
+    ang = (pos * freqs[:, None, None]).permute(1, 2, 0)     # (B, S, half)
+    ang = ang[..., None, :]                                 # (B, S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------- embedding

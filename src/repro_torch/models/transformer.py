@@ -51,11 +51,6 @@ from repro_torch.models.config import ModelConfig
 Params = Dict[str, torch.Tensor]
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue "
-                               "A13)")
-
-
 def _check_supported(cfg: ModelConfig) -> None:
     for kind in cfg.group_pattern:
         if kind not in BLOCK_NAMES:
@@ -306,13 +301,26 @@ def forward_train_aux(params: LM, batch: Dict[str, torch.Tensor],
                       cfg: ModelConfig) -> Tuple[torch.Tensor, ScanAux]:
     """The JAX package's ``forward_train``: logits (B, S, padded_vocab) of
     the teacher-forced forward over ``batch["tokens"]`` (B, S), under the
-    caller's grad mode, and the MoE terms summed over the layers."""
+    caller's grad mode, and the MoE terms summed over the layers.
+
+    A VLM batch (qwen2-vl) may carry ``patch_embeds`` (B, P, d), which
+    take the first P token slots in the compute dtype (the vision tower
+    is a stub, as in the JAX package), and, with ``cfg.mrope``,
+    ``positions`` (3, B, S); without them each stream is ``arange(S)``.
+    Without ``cfg.mrope`` the positions are ``arange(S)`` whatever the
+    batch holds."""
     tokens = batch["tokens"]
-    if "patch_embeds" in batch:
-        raise _unported("the VLM patch-embedding frontend")
     b, s = tokens.shape
     x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    if "patch_embeds" in batch:
+        patches = L.cast_to(batch["patch_embeds"], cfg.cdtype)
+        x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    if cfg.mrope:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device).expand(3, b, s)
+    else:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
     x, aux = backbone(params, x, cfg, positions)
     x = L.apply_norm(cfg.norm, params.final_norm, x)
     return L.unembed(params.head, params.embed, x, cfg.cdtype,
@@ -375,9 +383,12 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
                 device="cuda") -> List[Params]:
     """One decode cache per layer, in layer order: an empty ring cache
     for an attention layer, the initial state's fields for a recurrent
-    one."""
+    one.  On the ``meta`` device it gives shapes and dtypes and allocates
+    nothing (`configs.shapes.input_specs`)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     caches = []
     for li in range(cfg.n_layers):
         pos = li % cfg.group_size
@@ -438,7 +449,12 @@ def forward_prefill(params: LM, batch: Dict[str, torch.Tensor],
                     cfg: ModelConfig, cache_len: Optional[int] = None):
     """Prefill: the train forward's logits, and decode caches filled by
     replaying the prompt one token at a time (exact).  The replay skips
-    the per-step unembedding, whose logits it would discard."""
+    the per-step unembedding, whose logits it would discard.
+
+    As in the JAX package, the replay re-embeds the *tokens* at position
+    ``t`` on every stream: a VLM batch's ``patch_embeds`` and
+    ``positions`` reach the logits but not the caches, which hold the
+    text alone."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     caches = init_caches(cfg, b, cache_len or s, tokens.device)

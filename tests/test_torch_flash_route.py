@@ -16,7 +16,8 @@ checked without the card:
 * that its one rounding change fits the existing tolerances: its
   arithmetic emulated in plain torch (bf16 operands, f32 scores scaled
   after the product, an online softmax over 64-key tiles with l summed
-  from the f32 p, p rounded to bf16 for P.V) against the JAX package's
+  from the f32 p, P.V taking p as its bf16 rounding plus the rest rounded
+  to bf16) against the JAX package's
   ``attention_ref`` at the bf16 tolerance 2e-2, and inside the reduced
   gemma-2b prefill against the serve check's 0.02 of the largest |logit|;
 * the wgmma wrapper's refusals and the build's one-file rule.
@@ -174,7 +175,8 @@ def wgmma_route_emulated(q, k, v, *, causal=True, window=None, chunk=None,
     signature: bf16 q, k, v; f32 scores (exact bf16 products summed in
     f32) scaled by 1/sqrt(hd) after the product; an online softmax over
     key tiles of 64 rows with m, l and acc in f32 and l summed from the
-    f32 p; p rounded to bf16 for P.V; the output rounded to q's dtype."""
+    f32 p; P.V as two bf16 products, p's bf16 rounding and the rest
+    (p less it) rounded to bf16; the output rounded to q's dtype."""
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -202,8 +204,10 @@ def wgmma_route_emulated(q, k, v, *, causal=True, window=None, chunk=None,
         p = torch.where(live[..., None], torch.exp(sc - m_new[..., None]),
                         0.0)
         l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        rest = (p - hi).bfloat16().float()
         acc = acc * alpha[..., None] + torch.einsum(
-            "bkgqs,bskh->bkgqh", p.bfloat16().float(), vf[:, k0:k0 + BK])
+            "bkgqs,bskh->bkgqh", hi + rest, vf[:, k0:k0 + BK])
         m = m_new
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)

@@ -12,8 +12,10 @@ tests/test_torch_train.py's tolerances (the MoE configurations' too, and
 `apply_moe` card against CPU), the state-space and recurrent models
 (reduced jamba and xlstm) card against CPU within 1e-4 of the largest
 value, the chunkwise mLSTM against the sequential one on the card and
-jamba's bf16 prefill through the wgmma kernel, the flash route's refusal under
-autograd, and a resume on the card from a checkpoint.  The contract
+jamba's bf16 prefill through the wgmma kernel, M-RoPE and the reduced
+qwen2-vl (patches and positions) card against CPU and its bf16 prefill
+through the wgmma kernel, the flash route's refusal under autograd, and
+a resume on the card from a checkpoint.  The contract
 checker with its SASS layer (it needs the CUDA toolkit).  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
 it runs where JAX is not installed:
@@ -616,7 +618,12 @@ WGMMA_CASES = [(*c[:7], "bfloat16") for c in CARD_FLASH_CASES] + [
     (1, 2048, 8, 1, 256, None, None, "bfloat16"),
     (1, 1000, 8, 2, 120, 64, None, "bfloat16"),
     (16, 224, 6, 6, 64, None, None, "bfloat16"),
-    (16, 448, 6, 6, 64, None, None, "bfloat16")]
+    (16, 448, 6, 6, 64, None, None, "bfloat16"),
+    # qwen2's prefill heads (GQA 8, hd 128) at the serve's 4 x 512 and a
+    # ragged S; jamba's (GQA 4) at the same shape
+    (4, 512, 64, 8, 128, None, None, "bfloat16"),
+    (1, 1000, 64, 8, 128, None, None, "bfloat16"),
+    (4, 512, 32, 8, 128, None, None, "bfloat16")]
 
 
 def _card_flash(case, seed, device):
@@ -1309,6 +1316,144 @@ def test_jamba_bf16_prefill_on_card_takes_wgmma(cuda_device, monkeypatch):
         before, flash_attention_wgmma=before["flash_attention_wgmma"] + 1)
     assert len(errs) == 1 and errs[0] <= 2e-2
     assert bool(torch.isfinite(logits.float()).all())
+
+
+# -- the qwen2 family: M-RoPE and the patch frontend ----------------------------
+
+
+def _vl_batch(cfg, step, device, b=2, s=40):
+    """A reduced qwen2-vl batch drawn on the CPU: tokens and targets,
+    patch embeddings (b, s // 2, d) and (3, b, s) positions with the patch
+    slots on an h x w grid (h the largest divisor up to the square root)
+    and the text after them on every stream."""
+    rng = np.random.default_rng(70 + step)
+    rows = rng.integers(1, cfg.vocab_size, (b, s + 1))
+    n_patch = s // 2
+    h = max(d for d in range(1, int(n_patch ** 0.5) + 1) if n_patch % d == 0)
+    w = n_patch // h
+    pos = np.zeros((3, b, s), np.int64)
+    pos[1, :, :n_patch] = np.repeat(np.arange(h), w)
+    pos[2, :, :n_patch] = np.tile(np.arange(w), h)
+    pos[:, :, n_patch:] = np.arange(s - n_patch) + max(h, w)
+    patches = rng.standard_normal((b, n_patch, cfg.d_model),
+                                  dtype=np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            (("tokens", rows[:, :-1]), ("targets", rows[:, 1:]),
+             ("positions", pos.astype(np.int32)), ("patch_embeds", patches))}
+
+
+@pytest.mark.parametrize("hd,sections", [(128, (16, 24, 24)), (12, (2, 2, 2)),
+                                         (24, (3, 5, 7))])
+def test_mrope_on_card_matches_cpu(hd, sections, cuda_device):
+    """`apply_mrope` on the card against the CPU on three distinct
+    position streams up to 4,096, float32: within 1e-4.  The angles are
+    one product each on both; PyTorch's CUDA sin/cos reduce a large
+    argument less exactly than the CPU's (2.05e-5 apart at angles up to
+    4,096 rad on an H100)."""
+    from repro_torch.models import layers as L
+    rng = np.random.default_rng(hd)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 8, hd),
+                                             dtype=np.float32))
+    pos = torch.from_numpy(rng.integers(0, 4096, (3, 2, 64)).astype(np.int32))
+    want = L.apply_mrope(x, pos, 1e6, sections)
+    got = L.apply_mrope(x.to(cuda_device), pos.to(cuda_device), 1e6,
+                        sections)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_qwen2_vl_reduced_serve_on_card_matches_cpu(cuda_device):
+    """The reduced qwen2-vl-72b served on the card with its patches and
+    positions (the prefill's flash calls on the SIMT kernel in float32,
+    one a layer) against the same parameters and batch on the CPU: the
+    prefill logits and every cache within 1e-4 of the largest value,
+    greedy tokens exactly."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b", reduced=True),
+                              compute_dtype="float32")
+    params = T.init_lm(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = _vl_batch(cfg, 0, "cpu")
+    extra = {k: batch[k] for k in ("positions", "patch_embeds")}
+    prefill_batch = dict(extra, tokens=batch["tokens"])
+    flash_cfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    want, want_caches = T.forward_prefill(params, prefill_batch, flash_cfg,
+                                          46)
+    want_tokens, _, _ = tserve.generate(params, batch["tokens"], cfg, 6,
+                                        **extra)
+    params.to(cuda_device)
+    prefill_batch = {k: v.to(cuda_device) for k, v in prefill_batch.items()}
+    before = dict(fkernel.LAUNCHES)
+    tokens, _, _ = tserve.generate(
+        params, prefill_batch["tokens"], cfg, 6,
+        positions=prefill_batch["positions"],
+        patch_embeds=prefill_batch["patch_embeds"])
+    assert fkernel.LAUNCHES == dict(
+        before, flash_attention_simt=before["flash_attention_simt"]
+        + cfg.n_layers)
+    got, caches = T.forward_prefill(params, prefill_batch, flash_cfg, 46)
+    assert _within(got, want)
+    for a, b in zip(caches, want_caches):
+        for name in b:
+            assert _within(a[name].float(), b[name].float()), name
+    assert torch.equal(tokens.cpu(), want_tokens)
+
+
+def test_qwen2_vl_bf16_prefill_on_card_takes_wgmma(cuda_device, monkeypatch):
+    """The reduced qwen2-vl in bf16 compute on the card with its patches
+    and positions, its head dim 12 widened to 16 (the wgmma kernel takes
+    a multiple of 8; M-RoPE's widths become 3, 3, 2): the prefill's
+    attention goes through the wgmma kernel once a layer (GQA 4), and
+    its logits agree with the same forward with `attention_ref` in the
+    kernel's place to 0.02 of the largest |logit| (chip_smoke's serve
+    check)."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b", reduced=True),
+                              head_dim=16, use_pallas_attn=True)
+    params = T.init_lm(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, device=cuda_device)
+    batch = _vl_batch(cfg, 1, cuda_device, s=200)
+    del batch["targets"]
+    before = dict(fkernel.LAUNCHES)
+    with torch.no_grad():
+        got = T.forward_train(params, batch, cfg).float()
+    torch.cuda.synchronize()
+    assert fkernel.LAUNCHES == dict(
+        before, flash_attention_wgmma=before["flash_attention_wgmma"]
+        + cfg.n_layers)
+    monkeypatch.setattr(fops, "flash_attention", flash_attention_plain)
+    with torch.no_grad():
+        want = T.forward_train(params, batch, cfg).float()
+    assert (got - want).abs().max().item() <= 0.02 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "qwen2-vl-72b"])
+def test_qwen2_train_steps_on_card_match_cpu(arch, cuda_device):
+    """The reduced qwen2 configurations in float32 compute, 3 train steps
+    on the card against the CPU (the VLM's batches with patches and
+    positions): the loss and the grad norm to 1e-5 relative
+    (tests/test_torch_train.py's tolerances), the parameters to
+    2·sum(lr), no kernel of the port launched."""
+    from repro_torch.train import OptConfig, make_train_step
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10))
+    states = {d: _fresh_train_state(cfg, d) for d in ("cuda", "cpu")}
+    before = {**tkernel.LAUNCHES, **fkernel.LAUNCHES}
+    lr_sum = 0.0
+    for i in range(3):
+        metrics = {}
+        for d in states:
+            batch = _vl_batch(cfg, i, d)
+            if not cfg.mrope:
+                batch = {k: batch[k] for k in ("tokens", "targets")}
+            states[d], metrics[d] = step(states[d], batch)
+        for k in ("loss", "grad_norm"):
+            got, want = float(metrics["cuda"][k]), float(metrics["cpu"][k])
+            assert abs(got - want) <= 1e-5 * abs(want), (i, k)
+        lr_sum += float(metrics["cpu"]["lr"])
+    assert {**tkernel.LAUNCHES, **fkernel.LAUNCHES} == before
+    got = states["cuda"].params.state_dict()
+    for k, want in states["cpu"].params.state_dict().items():
+        assert (got[k].cpu() - want).abs().max().item() <= 2 * lr_sum, k
 
 
 def test_flash_route_under_grad_raises_on_card(cuda_device):

@@ -44,9 +44,10 @@ from torch_jax_release import release_compiled_programs  # noqa: F401
 ARCHS = ["gemma-2b", "stablelm-1.6b", "h2o-danube-3-4b"]
 # the MoE architectures: tests/test_torch_moe.py; the state-space and
 # recurrent ones: tests/test_torch_ssm.py; the encoder-decoder:
-# tests/test_torch_encdec.py
+# tests/test_torch_encdec.py; the qwen2 family: tests/test_torch_qwen2.py
 PORTED = ARCHS + ["mixtral-8x22b", "llama4-scout-17b-a16e",
-                  "jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny"]
+                  "jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny",
+                  "qwen2-72b", "qwen2-vl-72b"]
 B, S, GEN = 2, 24, 4       # S past danube's reduced window (16)
 F32_TOL, BF16_TOL = 1e-4, 0.1
 
@@ -97,12 +98,10 @@ def test_model_config_from_fields_carries_every_config(arch):
     port = interop.model_config_from_fields(dataclasses.asdict(ref))
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     assert port.hd == ref.hd and port.n_groups == ref.n_groups
-    if arch in PORTED:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(ref)
-    else:
-        with pytest.raises(NotImplementedError, match="Queue A13"):
-            get_config(arch)
+    assert arch in PORTED
+    for reduced in (False, True):
+        assert dataclasses.asdict(get_config(arch, reduced)) == \
+            dataclasses.asdict(jax_get_config(arch, reduced))
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny"])
