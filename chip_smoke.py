@@ -10,8 +10,9 @@ tree and of the checkout at DIR, alternately (`compare_walls`);
 the training phase alone, ``--contract`` the contract checker's
 phase alone, ``--moe`` the Mixture-of-Experts phase alone, ``--ssm``
 the state-space and recurrent phase alone, ``--encdec`` the
-encoder-decoder phase alone (with the global-memory domain leg) and
-``--qwen2`` the qwen2 phase alone;
+encoder-decoder phase alone (with the global-memory domain leg),
+``--qwen2`` the qwen2 phase alone and ``--sharded-train`` the sharded
+train phase alone;
 ``--sweep-rank RANK
 WORLD DIR`` is one rank of the sharded phase's gloo worlds, which the
 script starts itself (`sweep_rank_main`).  With no arguments it
@@ -236,7 +237,20 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    patches and positions (batch 4 x 512; no kernel launched, counted) and the reduced twin's 3 steps card against
    CPU; (d) the wgmma kernel at qwen2's heads (B 4, S 512, H 64/8, hd
    128) and jamba's (H 32/8) against the plain version, queued beside
-   causal SDPA, with its bound;
+   causal SDPA, with its bound; then the sharded train phase
+   (`parallel/sharding.py`, `launch/shardutil.py`,
+   `train/steps.make_sharded_train_step`, `train/compression.py`;
+   ``--sharded-train`` alone): (a) a (1, 1) mesh in an NCCL world of one,
+   gemma-2b at full width cut to 2 layers with its p, m and v DTensors
+   on the card, 3 steps at 4 x 512 beside the unsharded step, the loss,
+   grad norm, parameters, m and v compared (bit-equal expected), the step
+   times and peak memory, no kernel launched (counted); (b) gloo worlds of
+   2 and 4 ranks sharing the card, each rank a process of
+   tests/torch_sharding_worker.py (torch and the port alone): meshes 2
+   and 1x2, and 2x2, the reduced gemma-2b and mixtral-8x22b (local MoE
+   pools) in f32, 3 steps, every rank against the unsharded step on the
+   card; (c) `compressed_psum`
+   over (a)'s and (b)'s worlds against the exact mean;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -313,6 +327,7 @@ from repro_torch.train import steps as tsteps  # noqa: E402
 from repro_torch.tune import __main__ as tune_cli  # noqa: E402
 from repro_torch.tune import profile as tune_profile  # noqa: E402
 from torch_parity import MERGE_CASES, merge_case, table_variant  # noqa: E402
+import torch_sharding_worker as shard_worker  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -2822,6 +2837,315 @@ def run_train_path(card) -> None:
     print(f"training phase: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the sharded train step (parallel/sharding.py, train/steps.py) ------------
+
+SHARD_LAYERS, SHARD_STEPS = 2, 3
+SHARD_OPT = topt.OptConfig(**shard_worker.STEP_OPT)
+SHARD_TIMEOUT_S = 240   # a world's ranks, from spawn to exit
+OPT_RTOL = 1e-6         # tests/test_torch_train.py
+# (b)'s well-conditioned parameters after 3 steps, as a share of the
+# steps' summed learning rates, the size of the update a step misses
+# (on the card: 0.011, an element of a norm scale that starts at zero)
+SHARD_P_LR = 0.05
+PSUM_REL, PSUM_ABS = 0.02, 1e-3   # the JAX package's compressed_psum bound
+
+
+def psum_bound_err(mean, exact) -> tuple:
+    """(largest |mean - exact| over the leaves, its bound 0.02 * the
+    largest |exact| + 1e-3)."""
+    err = max(float((mean[k].cpu() - exact[k]).abs().max()) for k in exact)
+    scale = max(float(exact[k].abs().max()) for k in exact)
+    return err, PSUM_REL * scale + PSUM_ABS
+
+
+def run_sharded_one(card):
+    """(a) A (1, 1) ``DeviceMesh`` in an NCCL world of one, the rules of
+    `make_rules` over it: gemma-2b at full width cut to 2 layers (f32
+    state, bf16 compute), its p, m and v DTensors on the card, 3 sharded
+    steps on batch 4 x 512 beside the unsharded step on the same batch;
+    each step's loss, grad norm, parameters, m and v compared (bit-equal
+    expected: the collectives are identities over one rank), the step
+    times and the peak memory printed; no kernel of the port launched.
+    Then (c) `compressed_psum` over the world of one against the exact
+    mean."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.shardutil import state_shardings
+    from repro_torch.parallel import sharding as PS
+    from repro_torch.train import compression as C
+    rules = PS.make_rules(tmesh.make_mesh((1, 1), "cuda"))
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail("sharded train (a): the world of one is not NCCL's")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=SHARD_LAYERS)
+    nbytes = 3 * sum(t.numel() * t.element_size() for t in
+                     tsteps.abstract_state(cfg).params.state_dict().values())
+    check_card_room(f"sharded train (a) {cfg.name} cut to {SHARD_LAYERS} "
+                    "layers, p + m + v twice", 2 * nbytes)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)
+    plain = tsteps.init_state(gen(), cfg)
+    sharded = tsteps.shard_state(tsteps.init_state(gen(), cfg),
+                                 state_shardings(tsteps.abstract_state(cfg),
+                                                 rules))
+    kind = {type(t).__name__ for t in sharded.params.state_dict().values()}
+    step = tsteps.make_train_step(cfg, SHARD_OPT)
+    sstep = tsteps.make_sharded_train_step(cfg, SHARD_OPT, rules)
+    zero_counts()
+    rows, worst, lr_sum, p_check = [], {}, 0.0, None
+    for i in range(SHARD_STEPS):
+        batch = train_batch(cfg, i)
+        (plain, mp), t_plain = synced_s(lambda: step(plain, batch))
+        torch.cuda.reset_peak_memory_stats()
+        (sharded, ms), t_shard = synced_s(lambda: sstep(sharded, batch))
+        peak = torch.cuda.max_memory_allocated()
+        lr_sum += float(mp["lr"])
+        pairs = {"loss/grad_norm": [(ms[k], mp[k])
+                                    for k in ("loss", "grad_norm")]}
+        shards = sharded.params.state_dict()
+        pairs["params"] = [(shards[k].to_local(), p)
+                           for k, p in plain.params.state_dict().items()]
+        for part in ("m", "v"):
+            pairs[part] = [(getattr(sharded.opt, part)[k].to_local(), t)
+                           for k, t in getattr(plain.opt, part).items()]
+        for name, group in pairs.items():
+            equal = all(torch.equal(a, b) for a, b in group)
+            rel = max(float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30) for a, b in group)
+            absd = max(float((a - b).abs().max()) for a, b in group)
+            w = worst.setdefault(name, [True, 0.0, 0.0])
+            worst[name] = [w[0] and equal, max(w[1], rel), max(w[2], absd)]
+        if not worst["params"][0]:
+            p_check = shard_worker.param_errors(
+                {k: t.to_local() for k, t in shards.items()},
+                plain.params.state_dict(), plain.opt.v, i + 1)
+        rows.append((float(ms["loss"]), float(mp["loss"]), t_shard, t_plain,
+                     peak))
+    counts = all_counts()
+    for i, (ls, lp, ts, tp, peak) in enumerate(rows):
+        print(f"sharded train (a) step {i + 1}: loss {ls!r} (unsharded "
+              f"{lp!r}); step {ts:.4f} s sharded, {tp:.4f} s unsharded; "
+              f"peak {peak / 1e9:.3f} GB during the sharded step")
+    print(f"sharded train (a) {cfg.name} cut to {SHARD_LAYERS} layers "
+          f"({cfg.param_count()} parameters; p, m and v {nbytes / 1e9:.3f} "
+          f"GB f32, held as {sorted(kind)}) on a (1, 1) mesh, NCCL world of "
+          f"one, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{SHARD_STEPS} steps on {card}: " + "; ".join(
+              f"{k} bit-equal {e}, max rel {r:.3g}, max abs {a:.3g}"
+              for k, (e, r, a) in worst.items()) + f"; launches {counts}")
+    bad = [k for k, (e, r, a) in worst.items()
+           if not e and k != "params" and r > OPT_RTOL]
+    if p_check is not None:
+        print(f"sharded train (a) parameters after the last step: "
+              f"well-conditioned max rel {p_check['rel']:.3g}; "
+              f"{p_check['n_ill']} of {p_check['n']} elements "
+              f"ill-conditioned, max abs {p_check['ill_abs']:.3g}")
+        if p_check["rel"] > OPT_RTOL or p_check["ill_abs"] > 2 * lr_sum:
+            bad.append("params")
+    if bad or any(counts.values()):
+        fail(f"sharded train (a) differs from the unsharded step in {bad} "
+             f"(loss, grad norm, m and v to {OPT_RTOL:g} relative; "
+             f"parameters to {OPT_RTOL:g} of their leaf's largest where "
+             "well-conditioned, else 2*sum(lr) = "
+             f"{2 * lr_sum:.3g}), or launched {counts}")
+    del plain, sharded
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grads = {k: torch.randn(shape, generator=gen, device="cuda")
+             for k, shape in (("a", (2048, 2048)), ("b", (8, 64)))}
+    mean, _ = C.compressed_psum(grads, C.init_ef(grads), None)
+    err, tol = psum_bound_err(mean, {k: g.cpu() for k, g in grads.items()})
+    print(f"sharded train (c) compressed_psum over the NCCL world of one: "
+          f"max error {err:.4g} against the exact mean (bound {tol:.4g})")
+    if err > tol:
+        fail("sharded train (c): compressed_psum past its bound")
+    dist.destroy_process_group()
+
+
+def shard_inputs():
+    """The gloo worlds' inputs (tests/torch_sharding_worker.py's): each
+    case arch's state from seed 0 on the CPU and the batch."""
+    inputs = {"batch": tdata.SyntheticTokens(tdata.DataConfig(
+        vocab_size=512, seq_len=shard_worker.S,
+        global_batch=shard_worker.B, seed=1)).batch_at(0, "cpu")}
+    for arch in shard_worker.ARCHS:
+        cfg = shard_worker.case_fields(get_config(arch, reduced=True))
+        state = tsteps.init_state(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+        inputs[arch] = dict(params=dict(state.params.state_dict()),
+                            m=state.opt.m, v=state.opt.v,
+                            count=state.opt.count, step=state.step)
+    return inputs
+
+
+def shard_unsharded(arch, spec, inputs):
+    """The unsharded steps of a case on the card under the rules of its
+    mesh's shape (the same MoE pools): each step's metrics and the final
+    state."""
+    from repro_torch.parallel import sharding as PS
+    cfg = shard_worker.case_fields(get_config(arch, reduced=True))
+    saved = inputs[arch]
+    state = tsteps.load_state(
+        tsteps.init_state(torch.Generator(device="cuda"), cfg),
+        tsteps.TrainState(
+            saved["params"], topt.OptState(
+                {k: t.cuda() for k, t in saved["m"].items()},
+                {k: t.cuda() for k, t in saved["v"].items()},
+                saved["count"].cuda()), saved["step"].cuda()))
+    dims = shard_worker.mesh_dims(spec)
+    rules = PS.make_rules(PS.MeshShape(("data", "model")[:len(dims)], dims))
+    step = tsteps.make_train_step(cfg, SHARD_OPT)
+    batch = {k: v.cuda() for k, v in inputs["batch"].items()}
+    by_step = []
+    with PS.use_mesh_rules(rules):
+        for _ in range(SHARD_STEPS):
+            state, metrics = step(state, batch)
+            by_step.append({k: float(v) for k, v in metrics.items()})
+    return by_step, state
+
+
+def run_sharded_gloo(card):
+    """(b) gloo worlds of 2 and 4 ranks sharing the card, each rank a
+    process of tests/torch_sharding_worker.py on the card: meshes 2 and
+    1x2 (world of 2) and 2x2 (world of 4), the reduced gemma-2b and
+    mixtral-8x22b (local MoE pools) in f32, 3 steps; every rank's loss
+    and grad norm at every step within F32_LOSS_RTOL of the unsharded
+    step's on the card, its gathered m and sqrt(v) within the bounds
+    GRAD_ATOL puts on Adam's weighted mean and root mean square of the
+    gradients (`torch_sharding_worker.moment_errors`), its parameters
+    within SHARD_P_LR * sum(lr), except the ill-conditioned elements (the
+    unsharded run's RMS gradient below 1000 eps,
+    `torch_sharding_worker.param_errors`), counted and held to
+    2 * sum(lr) (the largest errors printed); (c)
+    `compressed_psum` over each world, every rank alike and within the
+    bound of the exact mean.  Both worlds run at once.  A rank that fails
+    or times out fails the phase."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    worker = Path(__file__).resolve().parent / "tests" / \
+        "torch_sharding_worker.py"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    staged = "staged through host memory (gloo takes CUDA tensors there)"
+    try:
+        inputs = shard_inputs()
+        torch.save(inputs, tmp / "inputs.pt")
+        # both worlds at once: six processes on the card's host
+        t0 = time.perf_counter()
+        names = [(w, r) for w in shard_worker.WORLD_MESHES for r in range(w)]
+        logs = {n: open(tmp / f"w{n[0]}-rank{n[1]}.log", "w") for n in names}
+        procs = {(w, r): subprocess.Popen(
+            [sys.executable, str(worker), str(r), str(w),
+             str(tmp / f"store{w}"), str(tmp), "cuda", str(SHARD_STEPS)],
+            env=env, stdout=logs[w, r], stderr=subprocess.STDOUT)
+            for w, r in names}
+        failed = []
+        for n, proc in procs.items():
+            left = SHARD_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                code = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                code = "a timeout"
+            if code != 0:
+                failed.append(n)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+        if failed:
+            tails = "\n".join(
+                f"world {w} rank {r}: "
+                + (tmp / f"w{w}-rank{r}.log").read_text()[-2000:]
+                for w, r in failed)
+            fail(f"sharded train (b): ranks (world, rank) {failed} "
+                 f"failed\n{tails}")
+        print(f"sharded train (b) gloo worlds of 2 and 4 on the card, run "
+              f"together: {time.perf_counter() - t0:.1f} s with the ranks' "
+              f"start; collectives {staged}")
+        for world, specs in shard_worker.WORLD_MESHES.items():
+            ranks = [torch.load(tmp / f"w{world}-rank{r}.pt",
+                                weights_only=False) for r in range(world)]
+            for spec in specs:
+                for arch in shard_worker.ARCHS:
+                    check_sharded_case(world, spec, arch, ranks, inputs,
+                                       card)
+            check_gloo_psum(world, ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_sharded_case(world, spec, arch, ranks, inputs, card):
+    want_steps, want = shard_unsharded(arch, spec, inputs)
+    lr_sum = sum(m["lr"] for m in want_steps)
+    loss_err = dm = dv = 0.0
+    errs = []
+    for got in ranks:
+        got = got[spec, arch]
+        for g, w in zip(got["by_step"], want_steps):
+            for k in ("loss", "grad_norm"):
+                loss_err = max(loss_err, abs(float(g[k]) - w[k])
+                               / abs(w[k]))
+        m_err, v_err, m_tol, v_tol = shard_worker.moment_errors(
+            got["m"], got["v"], want.opt.m, want.opt.v, SHARD_STEPS)
+        dm, dv = max(dm, m_err), max(dv, v_err)
+        errs.append(shard_worker.param_errors(
+            got["params"], want.params.state_dict(), want.opt.v,
+            SHARD_STEPS))
+    worst = dict(max(errs, key=lambda e: e["abs"]),
+                 ill_abs=max(e["ill_abs"] for e in errs))
+    ok = loss_err <= TRAIN_LOSS_RTOL and dm <= m_tol and dv <= v_tol and \
+        worst["abs"] <= SHARD_P_LR * lr_sum and \
+        worst["ill_abs"] <= 2 * lr_sum
+    walls = ranks[0][spec, arch]["walls"]
+    print(f"sharded train (b) {arch} reduced, f32, mesh {spec} on a gloo "
+          f"world of {world}, {SHARD_STEPS} steps on {card}: every rank's "
+          f"loss / grad norm max rel diff {loss_err:.3g} (tolerance "
+          f"{TRAIN_LOSS_RTOL:g}), m / sqrt(v) max abs diff {dm:.3g} / "
+          f"{dv:.3g} (tolerance {m_tol:.3g} / {v_tol:.3g}), parameters "
+          f"where well-conditioned max abs diff {worst['abs']:.3g} = "
+          f"{worst['abs'] / lr_sum:.3g} sum(lr) (tolerance {SHARD_P_LR:g} "
+          f"sum(lr)), max rel {worst['rel']:.3g} of their leaf's largest "
+          f"({worst['rel_leaf']}), {worst['n_ill']} of {worst['n']} "
+          "elements ill-conditioned (RMS gradient below "
+          f"{shard_worker.ILL_RMS} eps), max abs diff {worst['ill_abs']:.3g} "
+          f"(tolerance 2*sum(lr) = {2 * lr_sum:.3g}); local "
+          f"MoE pool calls {ranks[0][spec, arch]['local_calls']}; rank 0's "
+          f"step walls {', '.join(f'{w:.4f}' for w in walls)} s "
+          f"({GLOO_NOTE}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"sharded train (b) {arch} mesh {spec} disagrees with the "
+             "unsharded step")
+
+
+def check_gloo_psum(world, ranks):
+    """(c) on a gloo world: both rounds alike on every rank, the first
+    within the bound of the exact mean."""
+    exact = {k: torch.from_numpy(np.mean(
+        [shard_worker.psum_inputs(r, 0)[k] for r in range(world)], axis=0))
+        for k in shard_worker.psum_inputs(0, 0)}
+    for round_ in (0, 1):
+        first = ranks[0]["psum"]["world", round_]["mean"]
+        if not all(torch.equal(r["psum"]["world", round_]["mean"][k],
+                               first[k]) for r in ranks for k in first):
+            fail(f"sharded train (c): compressed_psum differs between the "
+                 f"ranks of the gloo world of {world}")
+    err, tol = psum_bound_err(ranks[0]["psum"]["world", 0]["mean"], exact)
+    print(f"sharded train (c) compressed_psum over the gloo world of "
+          f"{world} on the card: every rank alike, max error {err:.4g} "
+          f"against the exact mean (bound {tol:.4g})")
+    if err > tol:
+        fail("sharded train (c): compressed_psum past its bound")
+
+
+def run_sharded_train_path(card) -> None:
+    """The sharded train phase: (a) and (c) on an NCCL world of one, then
+    (b) and (c) on gloo worlds of 2 and 4 sharing the card."""
+    t0 = time.perf_counter()
+    run_sharded_one(card)
+    t1 = time.perf_counter()
+    run_sharded_gloo(card)
+    print(f"sharded train phase on {card}: {time.perf_counter() - t0:.1f} s"
+          f" ((a) and (c) {t1 - t0:.1f} s)")
+
 # -- flash attention and the serving path --------------------------------------
 
 
@@ -4642,6 +4966,7 @@ def main() -> None:
     encdec_counts, err_encdec, encdec_rows = run_encdec_path(
         dev, card, with_domain=False)
     qwen2_launches, err_qwen2, qwen2_rows = run_qwen2_path(dev, card)
+    run_sharded_train_path(card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -4733,6 +5058,8 @@ def main_phase(flag: str) -> None:
         with ThreadPoolExecutor(len(sources)) as pool:
             list(pool.map(_build.build, sources))
         run_encdec_path(torch.device("cuda"), card, with_domain=True)
+    elif flag == "--sharded-train":
+        run_sharded_train_path(card)
     elif flag == "--qwen2":
         sources = (fkernel.SOURCE, fkernel.WGMMA_SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
@@ -4752,7 +5079,7 @@ if __name__ == "__main__":
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
                           ["--moe"], ["--ssm"], ["--encdec"],
-                          ["--qwen2"]):
+                          ["--qwen2"], ["--sharded-train"]):
         main_phase(sys.argv[1])
     else:
         main()

@@ -21,9 +21,8 @@ CONFIG = ModelConfig(
     d_ff=14336,
     vocab_size=65536,
     group_pattern=_PATTERN,
-    # dispatch="local": per-DP-shard capacity pools in the JAX package; on
-    # one card the port runs the one global pool it equals at DP size 1
-    # (models/moe.py)
+    # dispatch="local": per-DP-shard capacity pools under a mesh; on one
+    # card the one global pool they equal at DP size 1 (models/moe.py)
     moe=MoEConfig(n_experts=16, top_k=2, every_n_layers=2,
                   dispatch="local"),
     ssm=SSMConfig(d_state=16, d_conv=4, expand=2, chunk=128),

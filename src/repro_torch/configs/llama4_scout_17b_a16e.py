@@ -17,7 +17,8 @@ CONFIG = ModelConfig(
     # size per position: only the every-4th global layer gets a full-
     # length ring (EXPERIMENTS.md §Perf D: 2.9-5.6x decode memory)
     group_pattern=("attn", "attn", "attn", "attn"),
-    # dispatch="local": the global pool on one card (models/moe.py)
+    # dispatch="local": per-DP-shard pools under a mesh, the global pool
+    # on one card (models/moe.py)
     moe=MoEConfig(n_experts=16, top_k=1, every_n_layers=1,
                   dispatch="local"),
     chunk_attn=8192,

@@ -11,9 +11,9 @@ CONFIG = ModelConfig(
     n_kv_heads=8,
     d_ff=16384,
     vocab_size=32768,
-    # dispatch="local": per-DP-shard capacity pools in the JAX package
-    # (EXPERIMENTS.md §Perf A); on one card the port runs the one global
-    # pool it equals at DP size 1 (models/moe.py)
+    # dispatch="local": per-DP-shard capacity pools under a mesh
+    # (EXPERIMENTS.md §Perf A); on one card the one global pool they
+    # equal at DP size 1 (models/moe.py)
     moe=MoEConfig(n_experts=8, top_k=2, every_n_layers=1,
                   dispatch="local"),
     sliding_window=4096,

@@ -59,7 +59,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device=None,
 
 def project_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    q = x @ L.wcast(p, "wq", cfg)
+    q = x @ L.wcast(p, "wq", cfg, [None, "model"])
     if "bq" in p:
         q = q + L.cast_to(p["bq"], cfg.cdtype)
     return q.reshape(b, s, cfg.n_heads, cfg.hd)
@@ -68,8 +68,8 @@ def project_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
-    k = x @ L.wcast(p, "wk", cfg)
-    v = x @ L.wcast(p, "wv", cfg)
+    k = x @ L.wcast(p, "wk", cfg, [None, "model"])
+    v = x @ L.wcast(p, "wv", cfg, [None, "model"])
     if "bk" in p:
         k = k + L.cast_to(p["bk"], cfg.cdtype)
         v = v + L.cast_to(p["bv"], cfg.cdtype)
@@ -79,7 +79,8 @@ def project_kv(p: Params, x: torch.Tensor, cfg: ModelConfig
 
 def out_proj(p: Params, o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s = o.shape[:2]
-    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ L.wcast(p, "wo", cfg)
+    return o.reshape(b, s, cfg.n_heads * cfg.hd) @ L.wcast(
+        p, "wo", cfg, ["model", None])
 
 
 def maybe_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,

@@ -113,7 +113,9 @@ class ModelConfig:
     # per-head symmetric quantization; halves decode cache bytes).
     kv_cache_dtype: str = "bfloat16"
     # Carried so JAX configurations map field for field; the port has no
-    # scans to unroll and one card, so neither changes what it computes.
+    # scans to unroll, and its sharded step gathers every block's weights
+    # whole where the block runs (`parallel.sharding.at_use`), so neither
+    # changes what it computes.
     unroll_scans: bool = False
     gather_weights: bool = False
 

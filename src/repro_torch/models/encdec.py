@@ -41,6 +41,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as PS
 
 Params = Dict[str, torch.Tensor]
 
@@ -171,6 +172,7 @@ def encode(params: EncDec, frames: torch.Tensor,
     _, s, d = frames.shape
     x = L.cast_to(frames, cfg.cdtype) + sinusoid(s, d, cfg.cdtype,
                                                  frames.device)[None]
+    x = PS.activations(x)
     for p in params.enc_blocks:
         h = L.apply_norm(cfg.norm, p.attn_norm, x)
         q = A.project_q(p.attn, h, cfg)
@@ -178,7 +180,7 @@ def encode(params: EncDec, frames: torch.Tensor,
         o = A.attend_blocked(q, k, v, cfg, causal=False)
         x = x + A.out_proj(p.attn, o, cfg)
         h = L.apply_norm(cfg.norm, p.mlp_norm, x)
-        x = x + L.apply_mlp(p.mlp, h, cfg)
+        x = PS.activations(x + L.apply_mlp(p.mlp, h, cfg))
     return L.apply_norm(cfg.norm, params.enc_final_norm, x)
 
 
@@ -204,10 +206,11 @@ def decode_forward(params: EncDec, tokens: torch.Tensor,
     b, s = tokens.shape
     x = L.embed(params.embed, tokens, cfg.cdtype)
     x = x + sinusoid(s, cfg.d_model, cfg.cdtype, tokens.device)[None]
+    x = PS.activations(x)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     layer = T._maybe_remat(_dec_block, cfg)
     for p in params.blocks:
-        x = layer(p, x, enc_out, cfg, positions)
+        x = PS.activations(layer(p, x, enc_out, cfg, positions))
     x = L.apply_norm(cfg.norm, params.final_norm, x)
     return L.unembed(None, params.embed, x, cfg.cdtype)
 
@@ -225,12 +228,16 @@ def lm_loss(params: EncDec, batch: Dict[str, torch.Tensor],
     """Mean next-token NLL over ``batch["targets"]`` (B, S): the float32
     logits' ``logsumexp`` over the padded vocabulary less the gold logit
     (a gather, bit-equal to the JAX package's iota-mask sum).  Returns
-    ``(nll, {"nll": nll})``."""
+    ``(nll, {"nll": nll})``; under a batch split of n slices
+    (`parallel.sharding.split_batch`) this slice's share, its mean over
+    n."""
     logits32 = forward_train(params, batch, cfg).float()
     lse = torch.logsumexp(logits32, dim=-1)
     gold = torch.gather(logits32, -1,
                         batch["targets"].long()[..., None])[..., 0]
     nll = torch.mean(lse - gold)
+    if PS.split_ranks() > 1:
+        nll = nll / nll.new_tensor(float(PS.split_ranks()))
     return nll, {"nll": nll}
 
 
@@ -260,6 +267,7 @@ def _decode_layers(params: EncDec, caches: Dict[str, List[Params]],
     layer's activations."""
     x = L.embed(params.embed, tokens, cfg.cdtype)
     x = x + _pos_embed_at(pos, cfg, tokens.device)
+    x = PS.constrain(x, ["batch", None, None])
     for p, sc, cc in zip(params.blocks, caches["self"], caches["cross"]):
         h = L.apply_norm(cfg.norm, p.attn_norm, x)
         y, _ = A.decode_attend(p.attn, h, sc, pos, cfg)

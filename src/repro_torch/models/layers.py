@@ -16,6 +16,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding as PS
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -25,10 +27,17 @@ def cast_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype) if x.dtype != dtype else x
 
 
-def wcast(p: Params, name: str, cfg) -> torch.Tensor:
-    """A weight cast to the compute dtype.  (The JAX package can also drop
-    the weight's FSDP sharding here; the port runs on one card.)"""
-    return cast_to(p[name], cfg.cdtype)
+def wcast(p: Params, name: str, cfg, roles) -> torch.Tensor:
+    """A weight cast to the compute dtype; with ``cfg.gather_weights``,
+    constrained to ``roles`` (the JAX package drops the weight's FSDP
+    sharding here: a ZeRO-3 weight all-gather instead of XLA's
+    activation-partial sums).  Under the port's sharded step ``p`` holds
+    weights gathered whole already (`parallel.sharding.at_use`), so the
+    constraint places nothing."""
+    w = cast_to(p[name], cfg.cdtype)
+    if cfg.gather_weights:
+        w = PS.constrain(w, roles)
+    return w
 
 
 def he_init(gen: torch.Generator, shape, dtype, fan_in: Optional[int] = None,
@@ -82,11 +91,13 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, activation: str, dtype,
 def apply_mlp(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     activation = cfg.activation
     x = cast_to(x, cfg.cdtype)
-    w_in, w_out = wcast(p, "w_in", cfg), wcast(p, "w_out", cfg)
+    w_in, w_out = wcast(p, "w_in", cfg, [None, "model"]), \
+        wcast(p, "w_out", cfg, ["model", None])
     if activation == "swiglu":
-        h = F.silu(x @ wcast(p, "w_gate", cfg)) * (x @ w_in)
+        h = F.silu(x @ wcast(p, "w_gate", cfg, [None, "model"])) * (x @ w_in)
     elif activation == "geglu":
-        h = F.gelu(x @ wcast(p, "w_gate", cfg), approximate="tanh") * (x @ w_in)
+        h = F.gelu(x @ wcast(p, "w_gate", cfg, [None, "model"]),
+                   approximate="tanh") * (x @ w_in)
     elif activation == "gelu":
         h = F.gelu(x @ w_in, approximate="tanh")
     else:

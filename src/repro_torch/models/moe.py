@@ -32,11 +32,22 @@ of the same function:
   depends on the order of the writes.  The combine gathers back through
   the same indices from the expert outputs with a zero sink row appended.
 
-``dispatch="local"`` (per data-parallel shard capacity pools) equals the
-global pool when the data-parallel size is 1, as the JAX package states;
-the port runs one card and no data-parallel LM, so both values run the
-global pool.  The local pool comes with the sharded stack (ROADMAP Queue
-A13).
+``dispatch="local"`` runs per data-parallel shard capacity pools
+(`_apply_moe_local`, the JAX package's): under bound mesh rules
+(`parallel.sharding`) whose batch axes hold ``dp`` > 1 shards, the
+tokens split into ``dp`` equal groups in order, each with its own
+capacity (of its ``T / dp`` tokens), its own running position counts
+and its own sink row; drops are per group.  With no rules bound, or a
+data-parallel size of 1, it is the one global pool.  Under
+`train.steps.make_sharded_train_step` a rank computes its slice of the
+batch (`sharding.split_batch`), which holds its ``dp / n`` shards; the
+auxiliary terms are means over the whole batch, so a rank returns its
+share of them (its mean probabilities, z-loss and dropped share over
+``n``, against the assignment shares summed over the slices), and the
+shares sum over the ranks to the reference's terms and gradients.  The
+global pool spans every rank's tokens, so the sharded step never splits
+the batch of a model with ``dispatch="global"`` (and `apply_moe` raises
+under such a split).
 
 The expert products run outside any kernel in the JAX package too: they
 are ``torch.bmm`` in the compute dtype here.
@@ -51,8 +62,11 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.parallel import sharding as PS
 
 Params = Dict[str, torch.Tensor]
+# the roles of an (E, d, ff) expert weight gathered at use
+GATHER = [None, None, "model"]
 
 
 class MoEAux(NamedTuple):
@@ -108,54 +122,122 @@ def route(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> Routing:
 def _experts(p: Params, expert_in: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
     """(E, C, d) -> (E, C, d) through each expert's FFN, in cfg.cdtype."""
-    hin = torch.bmm(expert_in, L.wcast(p, "w_in", cfg))
+    hin = torch.bmm(expert_in, L.wcast(p, "w_in", cfg, GATHER))
     if cfg.activation == "swiglu":
-        h = F.silu(torch.bmm(expert_in, L.wcast(p, "w_gate", cfg))) * hin
+        h = F.silu(torch.bmm(expert_in,
+                             L.wcast(p, "w_gate", cfg, GATHER))) * hin
     elif cfg.activation == "geglu":
-        h = F.gelu(torch.bmm(expert_in, L.wcast(p, "w_gate", cfg)),
+        h = F.gelu(torch.bmm(expert_in, L.wcast(p, "w_gate", cfg, GATHER)),
                    approximate="tanh") * hin
     elif cfg.activation == "gelu":
         h = F.gelu(hin, approximate="tanh")
     else:
         raise ValueError(cfg.activation)
-    return torch.bmm(h, L.wcast(p, "w_out", cfg))
+    return torch.bmm(h, L.wcast(p, "w_out", cfg, [None, "model", None]))
+
+
+def _dp_shards() -> int:
+    """Data-parallel shards in the tokens this process computes: the
+    bound rules' batch axes' size (1 when no rules are bound), over the
+    active batch split's slices."""
+    rules = PS.current_rules()
+    if rules is None or not rules.batch_axes:
+        return 1
+    return rules.axis_size(rules.batch_axes) // PS.split_ranks()
+
+
+def _pools(p: Params, xt: torch.Tensor, r: Routing, cfg: ModelConfig,
+           g: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Capacity dispatch, experts and combine over ``g`` equal groups of
+    the tokens xt (T, d) in order, each group a pool of its own: its
+    capacity, running position counts and sink row.  Returns (yt (T, d),
+    the one-hot choices (T, k, E), which pairs fit)."""
+    m = cfg.moe
+    t, d = xt.shape
+    e, k = m.n_experts, m.top_k
+    tl = t // g
+
+    # --- capacity: earlier (token, slot) pairs claim an expert's slots ----
+    c = capacity(m, tl)
+    onehot = F.one_hot(r.gate_idx, e)                      # (T, k, E) int64
+    flat = onehot.reshape(g, tl * k, e)
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1).reshape(t, k)
+    fits = pos < c
+
+    # --- dispatch: one pair per kept slot, dropped pairs to the sink -----
+    rows = e * c + 1                          # a group's slots, then its sink
+    dest = r.gate_idx * c + torch.clamp(pos, 0, c - 1)
+    dest = torch.where(fits, dest, e * c).reshape(g, tl * k)
+    if g > 1:
+        dest = dest + rows * torch.arange(g, device=dest.device)[:, None]
+    dest = dest.reshape(-1)                                # (T*k,)
+    buf = xt.new_zeros((g * rows, d)).index_copy(
+        0, dest, xt.repeat_interleave(k, dim=0))
+    expert_in = buf.reshape(g, rows, d)[:, :e * c].reshape(g, e, c, d)
+    expert_out = _experts(p, expert_in.transpose(0, 1).reshape(e, g * c, d),
+                          cfg).reshape(e, g, c, d).transpose(0, 1)
+
+    # --- combine, with a zero sink row for the dropped pairs -------------
+    flat_out = torch.cat([expert_out.reshape(g, e * c, d),
+                          expert_out.new_zeros((g, 1, d))], dim=1)
+    gathered = flat_out.reshape(g * rows, d)[dest].reshape(t, k, d)
+    yt = torch.sum(gathered * r.gate_w[..., None].to(gathered.dtype), dim=1)
+    return yt, onehot, fits
+
+
+def _aux(r: Routing, onehot: torch.Tensor, fits: torch.Tensor,
+         e: int) -> MoEAux:
+    """The load-balancing loss (Switch Transformer eq. 4), the z-loss and
+    the dropped share over the tokens; under a batch split of n > 1
+    slices, this slice's share of the whole batch's (the module
+    docstring)."""
+    me = r.probs.mean(dim=0)                                # (E,)
+    ce = onehot.sum(dim=1).float().mean(dim=0)              # (E,) assignment
+    z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+    dropped = 1.0 - fits.float().mean()
+    n = PS.split_ranks()
+    if n > 1:
+        slices = me.new_tensor(float(n))
+        ce = PS.split_sum(ce) / slices
+        me, z, dropped = me / slices, z / slices, dropped / slices
+    lb = e * torch.sum(me * ce)
+    return MoEAux(lb, 1e-3 * z, dropped)
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig, g: int
+         ) -> Tuple[torch.Tensor, MoEAux]:
+    b, s, d = x.shape
+    xt = L.cast_to(x.reshape(b * s, d), cfg.cdtype)
+    r = route(p, xt, cfg)
+    yt, onehot, fits = _pools(p, xt, r, cfg, g)
+    return yt.reshape(b, s, d), _aux(r, onehot, fits, cfg.moe.n_experts)
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, MoEAux]:
-    """x: (B, S, d) -> (B, S, d), aux terms.  One capacity pool over the
-    B * S tokens for either ``dispatch`` (see the module docstring)."""
-    m = cfg.moe
+    """x: (B, S, d) -> (B, S, d), aux terms: the local pools of
+    `_apply_moe_local` where ``dispatch="local"`` meets more than one
+    data-parallel shard that divides the tokens, or a rank's slice of a
+    split batch (its own shards' pools), else one capacity pool over the
+    B * S tokens (the module docstring)."""
+    if cfg.moe.dispatch == "local":
+        dp = _dp_shards()
+        if (dp > 1 or PS.split_ranks() > 1) \
+                and (x.shape[0] * x.shape[1]) % dp == 0:
+            return _apply_moe_local(p, x, cfg, dp)
+    elif PS.split_ranks() > 1:
+        raise ValueError(
+            "dispatch='global' pools every rank's tokens: a sharded step "
+            "computes such a model on the whole batch, unsplit")
+    return _moe(p, x, cfg, 1)
+
+
+def _apply_moe_local(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     dp: int) -> Tuple[torch.Tensor, MoEAux]:
+    """Per-DP-shard capacity dispatch (GShard-style local groups): the
+    position counts, the dispatch and the combine run within each of the
+    ``dp`` shards' token slices, so no dispatch buffer crosses the DP
+    axis.  Drop semantics are per group rather than global."""
     b, s, d = x.shape
-    t = b * s
-    e, k = m.n_experts, m.top_k
-    xt = L.cast_to(x.reshape(t, d), cfg.cdtype)
-    r = route(p, xt, cfg)
-
-    # --- capacity: earlier (token, slot) pairs claim an expert's slots ----
-    c = capacity(m, t)
-    onehot = F.one_hot(r.gate_idx, e)                      # (T, k, E) int64
-    flat = onehot.reshape(t * k, e)
-    pos = ((torch.cumsum(flat, dim=0) - flat) * flat).sum(-1).reshape(t, k)
-    fits = pos < c
-    dropped = 1.0 - fits.float().mean()
-
-    # --- dispatch: one pair per kept slot, dropped pairs to the sink -----
-    dest = r.gate_idx * c + torch.clamp(pos, 0, c - 1)
-    dest = torch.where(fits, dest, e * c).reshape(-1)      # (T*k,)
-    buf = xt.new_zeros((e * c + 1, d)).index_copy(
-        0, dest, xt.repeat_interleave(k, dim=0))
-    expert_out = _experts(p, buf[:e * c].reshape(e, c, d), cfg)
-
-    # --- combine, with a zero sink row for the dropped pairs -------------
-    flat_out = torch.cat([expert_out.reshape(e * c, d),
-                          expert_out.new_zeros((1, d))])
-    gathered = flat_out[dest].reshape(t, k, d)
-    yt = torch.sum(gathered * r.gate_w[..., None].to(gathered.dtype), dim=1)
-
-    # --- aux terms (Switch Transformer eq. 4, z-loss) ----------------------
-    me = r.probs.mean(dim=0)                                # (E,)
-    ce = onehot.sum(dim=1).float().mean(dim=0)              # (E,) assignment
-    lb = e * torch.sum(me * ce)
-    z = torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
-    return yt.reshape(b, s, d), MoEAux(lb, 1e-3 * z, dropped)
+    PS.constrain(x.reshape(dp, b * s // dp, d), ["batch", None, None])
+    return _moe(p, x, cfg, dp)

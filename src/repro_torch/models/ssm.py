@@ -39,6 +39,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
+# the roles of an mLSTM (H, hd, hd) projection gathered at use
+QKV_ROLES = [None, None, "model"]
 
 F32 = torch.float32
 
@@ -127,7 +129,7 @@ def _mamba_inner(p: Params, xz: torch.Tensor, cfg: ModelConfig,
     xs = F.silu(xconv)
 
     # input-dependent dt, B, C
-    proj = xs @ L.wcast(p, "x_proj", cfg)                   # (B,T,dtr+2N)
+    proj = xs @ L.wcast(p, "x_proj", cfg, ["model", None])  # (B,T,dtr+2N)
     dt, bmat, cmat = torch.split(proj, [dtr, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.float() @ p["dt_proj"].float() + p["dt_bias"])
     a = -torch.exp(p["A_log"])                              # (inner, N)
@@ -153,9 +155,10 @@ def apply_mamba(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[MambaState] = None
                 ) -> Tuple[torch.Tensor, MambaState]:
     """x: (B, S, d) -> (B, S, d). ``state`` enables decode continuation."""
-    xz = L.cast_to(x, cfg.cdtype) @ L.wcast(p, "in_proj", cfg)
+    xz = L.cast_to(x, cfg.cdtype) @ L.wcast(p, "in_proj", cfg,
+                                            [None, "model"])
     y, new_state = _mamba_inner(p, xz, cfg, state)
-    return y @ L.wcast(p, "out_proj", cfg), new_state
+    return y @ L.wcast(p, "out_proj", cfg, ["model", None]), new_state
 
 
 # ===========================================================================
@@ -311,12 +314,12 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     inner, hd = mlstm_dims(cfg)
     h = cfg.n_heads
     cdt = cfg.cdtype
-    up = L.cast_to(x, cdt) @ L.wcast(p, "up_proj", cfg)
+    up = L.cast_to(x, cdt) @ L.wcast(p, "up_proj", cfg, [None, "model"])
     xin, z = torch.chunk(up, 2, dim=-1)                     # (B,T,inner)x2
     xh = xin.reshape(b, t, h, hd)
-    q = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wq", cfg))
-    k = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wk", cfg))
-    v = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wv", cfg))
+    q = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wq", cfg, QKV_ROLES))
+    k = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wk", cfg, QKV_ROLES))
+    v = torch.einsum("bthi,hij->bthj", xh, L.wcast(p, "wv", cfg, QKV_ROLES))
     li, lf = _mlstm_gates(p, xin)
     if state is None:
         state = init_mlstm_state(cfg, b, x.device)
@@ -328,7 +331,8 @@ def apply_mlstm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(b, t, inner)
     # per-dim RMS "group norm" then gate
     yn = L.apply_norm("rmsnorm", {"scale": p["ln_scale"]}, y.to(cdt))
-    out = (yn * F.silu(z)) @ L.wcast(p, "down_proj", cfg)
+    out = (yn * F.silu(z)) @ L.wcast(p, "down_proj", cfg,
+                                     ["model", None])
     return out, state
 
 
@@ -406,9 +410,10 @@ def apply_slstm_cell(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def slstm_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The post-FFN (projection factor 4/3, tanh-approximate GELU) on the
     cell's ``ff_in``/``ff_out``."""
-    hmid = F.gelu(L.cast_to(x, cfg.cdtype) @ L.wcast(p, "ff_in", cfg),
+    hmid = F.gelu(L.cast_to(x, cfg.cdtype)
+                  @ L.wcast(p, "ff_in", cfg, [None, "model"]),
                   approximate="tanh")
-    return hmid @ L.wcast(p, "ff_out", cfg)
+    return hmid @ L.wcast(p, "ff_out", cfg, ["model", None])
 
 
 def apply_slstm(p: Params, x: torch.Tensor, cfg: ModelConfig,

@@ -47,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as PS
 
 Params = Dict[str, torch.Tensor]
 
@@ -215,6 +216,7 @@ def _apply_mlp_or_moe(p: Block, x: torch.Tensor, cfg: ModelConfig
 def _block_train(p: Block, x: torch.Tensor, kind: str, cfg: ModelConfig,
                  positions: torch.Tensor, is_global: bool
                  ) -> Tuple[torch.Tensor, ScanAux]:
+    p = PS.at_use(p)     # inside the remat: gathered again to recompute
     if kind == "attn":
         h = L.apply_norm(cfg.norm, p.attn_norm, x)
         # llama4: NoPE on global layers
@@ -294,6 +296,7 @@ def backbone(params: LM, x: torch.Tensor, cfg: ModelConfig,
         x, a = layer(block, x, cfg.block_kind(pos), cfg, positions,
                      flags[g][pos])
         aux = ScanAux(*(t + u for t, u in zip(aux, a)))
+        x = PS.activations(x)
     return x, aux
 
 
@@ -311,10 +314,12 @@ def forward_train_aux(params: LM, batch: Dict[str, torch.Tensor],
     batch holds."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    params = PS.at_use(params)
     x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
     if "patch_embeds" in batch:
         patches = L.cast_to(batch["patch_embeds"], cfg.cdtype)
         x = torch.cat([patches, x[:, patches.shape[1]:]], dim=1)
+    x = PS.activations(x)
     if cfg.mrope:
         positions = batch.get("positions")
         if positions is None:
@@ -323,8 +328,9 @@ def forward_train_aux(params: LM, batch: Dict[str, torch.Tensor],
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x, aux = backbone(params, x, cfg, positions)
     x = L.apply_norm(cfg.norm, params.final_norm, x)
-    return L.unembed(params.head, params.embed, x, cfg.cdtype,
-                     softcap=cfg.logit_softcap), aux
+    logits = L.unembed(params.head, params.embed, x, cfg.cdtype,
+                       softcap=cfg.logit_softcap)
+    return PS.constrain(logits, ["batch", None, "model"]), aux
 
 
 def forward_train(params: LM, batch: Dict[str, torch.Tensor],
@@ -358,8 +364,8 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)
-    nll = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                       min=1.0)
+    count = PS.split_sum(torch.sum(mask))     # the whole batch's tokens
+    nll = torch.sum((lse - gold) * mask) / torch.clamp(count, min=1.0)
     n_moe_layers = sum(1 for i in range(cfg.n_layers) if cfg.layer_is_moe(i))
     scale = 1.0 / max(n_moe_layers, 1)
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
@@ -423,6 +429,7 @@ def _decode_layers(params: LM, caches: List[Params], tokens: torch.Tensor,
     """Embed one token per row and run it through every layer, writing
     each layer's cache in place; returns the last layer's activations."""
     x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
+    x = PS.constrain(x, ["batch", None, None])
     flags = group_flags(cfg).tolist()
     for li, block in enumerate(params.blocks):
         g, p_i = divmod(li, cfg.group_size)

@@ -86,11 +86,13 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        norm_fn=global_norm
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Scale ``grads`` in place by ``min(1, max_norm / norm)``; returns
-    them and the norm before scaling."""
-    norm = global_norm(grads)
+    them and the norm before scaling, ``norm_fn(grads)`` (a sharded step
+    passes the norm over every rank's shards)."""
+    norm = norm_fn(grads)
     scale = torch.clamp(norm.new_tensor(max_norm)
                         / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
@@ -111,14 +113,14 @@ def _decay_mask(name: str) -> bool:
 
 @torch.no_grad()
 def update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
-           state: OptState, params: Named
+           state: OptState, params: Named, norm_fn=global_norm
            ) -> Tuple[Named, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place; returns (params, new_state, metrics).
     ``grads`` maps each parameter's name to its gradient and is clipped
-    in place."""
+    in place by the norm ``norm_fn`` takes of them."""
     named = _named(params)
     grads, gnorm = clip_by_global_norm({k: grads[k] for k in named},
-                                       cfg.clip_norm)
+                                       cfg.clip_norm, norm_fn)
     count = state.count + 1
     lr = lr_at(cfg, count)
     c32 = count.float()

@@ -15,7 +15,9 @@ value, the chunkwise mLSTM against the sequential one on the card and
 jamba's bf16 prefill through the wgmma kernel, M-RoPE and the reduced
 qwen2-vl (patches and positions) card against CPU and its bf16 prefill
 through the wgmma kernel, the flash route's refusal under autograd, and
-a resume on the card from a checkpoint.  The contract
+a resume on the card from a checkpoint, and the sharded train step (an
+NCCL world of one bit-equal to the unsharded step; gloo worlds of 2 and
+4 ranks sharing the card, tests/torch_sharding_worker.py).  The contract
 checker with its SASS layer (it needs the CUDA toolkit).  Without a card
 every test skips with a reason; the file imports torch and numpy only, so
 it runs where JAX is not installed:
@@ -1571,3 +1573,143 @@ def test_contract_sass_layer_fires_on_card(cuda_device, tmp_path):
     assert fn.name == "probe_kernel"
     assert sorted(rule for rule, _ in fn.hazards) == [
         "CU-RNG", "CU-SUM", "CU-SUM"], fn.hazards
+
+
+# -------------------------------------------------------- the sharded stack
+
+
+@pytest.fixture
+def card_world_of_one(cuda_device, monkeypatch):
+    """An NCCL world of one in this process, torn down afterwards."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    monkeypatch.setattr(tmesh, "_MESHES", {})
+    assert not dist.is_initialized()
+    yield cuda_device
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _sharding_case(arch, device):
+    """A tests/torch_sharding_worker.py case's config and a fresh state
+    from seed 0 on ``device``."""
+    import torch_sharding_worker as worker
+    cfg = worker.case_fields(get_config(arch, reduced=True))
+    return cfg, _fresh_train_state(cfg, device)
+
+
+def test_sharded_step_world_of_one_on_card(card_world_of_one):
+    """A (1, 1) mesh in an NCCL world of one: the reduced gemma-2b in
+    float32, 3 sharded steps, each step's loss and grad norm and every
+    shard (the whole tensor on a mesh of ones) bit-equal to the unsharded
+    step's on the card, no kernel of the port launched; then
+    `compressed_psum` over the world within the reference's bound of the
+    exact mean."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.shardutil import state_shardings
+    from repro_torch.parallel import sharding as PS
+    from repro_torch.train import OptConfig, abstract_state, make_train_step
+    from repro_torch.train import compression as C
+    from repro_torch.train import steps as ST
+    import torch_sharding_worker as worker
+    dev = card_world_of_one
+    rules = PS.make_rules(tmesh.make_mesh((1, 1), "cuda"))
+    cfg, plain = _sharding_case("gemma-2b", dev)
+    _, sharded = _sharding_case("gemma-2b", dev)
+    sharded = ST.shard_state(sharded, state_shardings(abstract_state(cfg),
+                                                      rules))
+    opt = OptConfig(**worker.STEP_OPT)
+    step, sstep = make_train_step(cfg, opt), \
+        ST.make_sharded_train_step(cfg, opt, rules)
+    before = {**tkernel.LAUNCHES, **fkernel.LAUNCHES}
+    for i in range(3):
+        batch = _train_batch(cfg, i, dev)
+        plain, want = step(plain, batch)
+        sharded, got = sstep(sharded, batch)
+        for k in ("loss", "grad_norm"):
+            assert torch.equal(got[k], want[k]), (i, k)
+        shards = sharded.params.state_dict()
+        for k, p in plain.params.state_dict().items():
+            assert torch.equal(shards[k].to_local(), p), (i, k)
+            assert torch.equal(sharded.opt.m[k].to_local(), plain.opt.m[k])
+    assert {**tkernel.LAUNCHES, **fkernel.LAUNCHES} == before
+    g = {"g": torch.randn(8, 64, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(1))}
+    mean, _ = C.compressed_psum(g, C.init_ef(g), None)
+    err = float((mean["g"] - g["g"]).abs().max())
+    assert err <= 0.02 * float(g["g"].abs().max()) + 1e-3
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_step_gloo_world_on_card(world, cuda_device, tmp_path):
+    """tests/torch_sharding_worker.py's ranks on the card (gloo, the
+    collectives through host memory): one sharded step of the reduced
+    gemma-2b and mixtral-8x22b on each of the world's meshes, every rank
+    against the unsharded step on the card under the same rules: the loss
+    and metrics to 1e-5 relative, m and sqrt(v) within the bounds the
+    gradient tolerance 1e-4 puts on them, the parameters to 1e-6 of each
+    leaf's largest value where the unsharded step's root mean square
+    gradient is 100 eps or more, to 2 * lr elsewhere (the CPU tests'
+    tolerances, `torch_sharding_worker.param_errors`); `compressed_psum`
+    alike on every rank."""
+    import os
+    import subprocess
+    import sys
+    from collections import OrderedDict
+    from pathlib import Path
+
+    from repro_torch.parallel import sharding as PS
+    from repro_torch.train import OptConfig, make_train_step
+    import torch_sharding_worker as worker
+    from repro_torch.data import DataConfig, SyntheticTokens
+    batch = SyntheticTokens(DataConfig(
+        vocab_size=512, seq_len=worker.S, global_batch=worker.B, seed=1)
+    ).batch_at(0, device="cpu")
+    inputs = {"batch": batch}
+    for arch in worker.ARCHS:
+        _, state = _sharding_case(arch, "cpu")
+        inputs[arch] = dict(params=OrderedDict(state.params.state_dict()),
+                            m=state.opt.m, v=state.opt.v,
+                            count=state.opt.count, step=state.step)
+    torch.save(inputs, tmp_path / "inputs.pt")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(worker.__file__)), str(r),
+         str(world), str(tmp_path / "store"), str(tmp_path), "cuda"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        log[-2000:] for log in logs)
+    ranks = [torch.load(tmp_path / f"w{world}-rank{r}.pt",
+                        weights_only=False) for r in range(world)]
+    for spec in worker.WORLD_MESHES[world]:
+        dims = worker.mesh_dims(spec)
+        rules = PS.make_rules(PS.MeshShape(("data", "model")[:len(dims)],
+                                           dims))
+        for arch in worker.ARCHS:
+            cfg, state = _sharding_case(arch, "cuda")
+            with PS.use_mesh_rules(rules):
+                state, want = make_train_step(
+                    cfg, OptConfig(**worker.STEP_OPT))(
+                        state, {k: v.cuda() for k, v in batch.items()})
+            lr = float(want["lr"])
+            for rank, got in enumerate(ranks):
+                got = got[spec, arch]
+                for k, v in want.items():
+                    assert float(got["metrics"][k]) == pytest.approx(
+                        float(v), rel=1e-5, abs=1e-12), (rank, k)
+                dm, dv, m_tol, v_tol = worker.moment_errors(
+                    got["m"], got["v"], state.opt.m, state.opt.v, steps=1)
+                assert dm <= m_tol and dv <= v_tol, (rank, dm, dv)
+                e = worker.param_errors(got["params"],
+                                        state.params.state_dict(),
+                                        state.opt.v, steps=1)
+                assert e["rel"] <= 1e-6 and e["ill_abs"] <= 2 * lr, (rank,
+                                                                     e)
+    for round_ in (0, 1):
+        first = ranks[0]["psum"]["world", round_]["mean"]
+        for got in ranks[1:]:
+            assert all(torch.equal(got["psum"]["world", round_]["mean"][k],
+                                   first[k]) for k in first)

@@ -530,12 +530,17 @@ def test_launch_train_on_cpu_resumes_as_uninterrupted(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh_and_enc_dec():
-    """The launcher refuses a mesh (naming Queue A13) and, up front, an
+    """In a world of one rank the launcher runs unsharded whatever
+    ``--mesh`` names (`build_mesh` gives None, as the JAX launcher's does
+    at one device); it refuses a malformed mesh spec and, up front, an
     encoder-decoder (its token batches carry no frames); the steps take
-    the encoder-decoder (`init_state`, `loss_fn_for`)."""
-    with pytest.raises(NotImplementedError, match="Queue A13"):
-        ttrain.build_mesh("2x4")
-    assert ttrain.build_mesh("none") is None
+    the encoder-decoder (`init_state`, `loss_fn_for`).  The meshes of
+    gloo worlds are held in tests/test_torch_sharding.py."""
+    for spec in ("none", "2x4", "2x2x2", "4"):
+        assert ttrain.build_mesh(spec, "cpu") is None
+    for spec in ("2y4", "2x2x2x2", ""):
+        with pytest.raises(ValueError):
+            ttrain.build_mesh(spec, "cpu")
     enc = interop.model_config_from_fields(
         dataclasses.asdict(jax_get_config("whisper-tiny", reduced=True)))
     assert loss_fn_for(enc) is E.lm_loss
