@@ -250,7 +250,24 @@ script starts itself (`sweep_rank_main`).  With no arguments it
    and 1x2, and 2x2, the reduced gemma-2b and mixtral-8x22b (local MoE
    pools) in f32, 3 steps, every rank against the unsharded step on the
    card; (c) `compressed_psum`
-   over (a)'s and (b)'s worlds against the exact mean;
+   over (a)'s and (b)'s worlds against the exact mean; then the dry-run
+   phase (`launch/dryrun.py`, `train/steps.make_sharded_prefill_step` /
+   `make_sharded_decode_step`, `interop`'s checkpoint name map;
+   ``--dryrun`` alone): (a) production cells of the dry run, each mesh's
+   in a process of its own with its fake world of 512 ranks, all on the
+   ``meta`` device (gemma-2b ``train_4k`` and ``decode_32k`` on 16 x 16,
+   mixtral-8x22b ``decode_32k`` on 2 x 16 x 16): memory, FLOPs, the
+   dominant term, the wall; (b) the dry run's predicted peak for
+   gemma-2b cut to 2 layers at 4 x 512 on a (1, 1) mesh (a fake world of
+   one, in a process of its own) against ``max_memory_allocated`` of the
+   real sharded step on the card, within `DRYRUN_PEAK_RTOL`, and the
+   traced FLOPs over the step's time; (c) gemma-2b in the serve's
+   configuration on a (1, 1) mesh in an NCCL world of one: the sharded
+   prefill (through the wgmma kernel, counted) and two sharded decode
+   steps bit-equal to the unsharded steps; (d) a JAX-layout checkpoint of
+   the reduced gemma-2b written on the host, restored onto the card
+   through the name map, its prefill logits equal to
+   `interop.params_from_numpy` of the same arrays;
 5. times the stream kernel (CUDA events, queued and back to back) for each
    of the six engine policies at its main-path operands, with ns per
    request per stream per wave; the merge (queued and back to back), the
@@ -1248,6 +1265,26 @@ def stream_bound(t_, n_, m_, n_win):
                        + 2 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_
                        + t_ * policy_core.N_METRICS)
     ops = t_ * (n_ * 6 * m_ + n_win * 5 * m_ + 48 * n_ * 2)
+    return (*bound(bytes_moved, ops), bytes_moved, ops)
+
+
+def ablate_bound(t_, n_, m_, n_win, level):
+    """`stream_bound` of ect's function at ``ablate`` level ``level``:
+    level 1 drops the fused metrics (the 48 bisection passes; the metric
+    row is still written, as zeros), level 2 also the per-request steps
+    (the request blocks are no longer read; choices and latencies are
+    still written, as zeros), leaving each window's renormalisation and
+    drain over the tables and rates; level 3 also the window-start plan,
+    which ect does not have, so it is level 2's.  Returns (ms, bound by,
+    bytes, ops)."""
+    if level == 0:
+        return stream_bound(t_, n_, m_, n_win)
+    requests = 0 if level >= 2 else 3 * t_ * n_
+    bytes_moved = 4 * (requests + t_ * 4 * m_ + t_ * n_win * m_ + t_
+                       + 2 * t_ * n_ + t_ * 4 * m_ + t_ * n_win * m_
+                       + t_ * policy_core.N_METRICS)
+    steps = 0 if level >= 2 else n_ * 6 * m_
+    ops = t_ * (steps + n_win * 5 * m_)
     return (*bound(bytes_moved, ops), bytes_moved, ops)
 
 
@@ -3146,6 +3183,282 @@ def run_sharded_train_path(card) -> None:
     print(f"sharded train phase on {card}: {time.perf_counter() - t0:.1f} s"
           f" ((a) and (c) {t1 - t0:.1f} s)")
 
+# -- the dry run ---------------------------------------------------------------
+
+# (arch, shapes, mesh): the production cells the phase traces, one
+# process a mesh
+DRYRUN_CELLS = (("gemma-2b", "train_4k,decode_32k", "16x16"),
+                ("mixtral-8x22b", "decode_32k", "2x16x16"))
+# the dry run's peak against the card's max_memory_allocated, relative
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_TIMEOUT = 240   # seconds, for each process of the phase
+DRYRUN_DECODE_STEPS = 2
+
+
+def dryrun_env() -> dict:
+    root = Path(__file__).resolve().parent
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root / "tests")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def start_dryrun_procs(tmp: str) -> dict:
+    """(a)'s CLI processes, one a mesh, and (b)'s prediction process,
+    started at once: they run on the host while the card checks run."""
+    procs = {}
+    for arch, shapes_, mesh in DRYRUN_CELLS:
+        out = os.path.join(tmp, f"cells-{mesh}.json")
+        procs[f"cells {mesh}"] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shapes_, "--mesh", mesh, "--out", out],
+            env=dryrun_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), out)
+    out = os.path.join(tmp, "predict.json")
+    procs["predict"] = (subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-predict",
+         out], env=dryrun_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def finish_dryrun_procs(procs: dict) -> dict:
+    """Wait for the phase's processes (`run_dryrun_path` kills any left
+    running); any failure fails the run.  Their outputs (JSON) by
+    name."""
+    got, failed = {}, []
+    for name, (proc, out) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+            failed.append(f"{name} timed out:\n{log[-2000:]}")
+            continue
+        if proc.returncode != 0:
+            failed.append(f"{name} exited {proc.returncode}:\n"
+                          f"{log[-2000:]}")
+            continue
+        with open(out) as f:
+            got[name] = json.load(f)
+    if failed:
+        fail("dry run: " + "\n\n".join(failed))
+    return got
+
+
+def dryrun_check_cfg():
+    """(b)'s cell: gemma-2b at full width cut to `SHARD_LAYERS` layers,
+    the sharded train phase's."""
+    return dataclasses.replace(get_config(TRAIN_ARCH), n_layers=SHARD_LAYERS)
+
+
+def dryrun_predict_main(out: str) -> None:
+    """``--dryrun-predict OUT``: (b)'s cell through the dry run's trace in
+    a fake world of one on a (1, 1) mesh, on ``meta``; its peak, FLOPs and
+    arguments to OUT.  No card is touched."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.parallel import sharding as PS
+    D.start_world(1)
+    rules = PS.make_rules(tmesh.make_mesh((1, 1), "cpu"))
+    t0 = time.perf_counter()
+    tr = D.trace_step(dryrun_check_cfg(), shapes.ShapeSpec(
+        "train_4k", "train", TRAIN_SEQ, TRAIN_BATCH), rules)
+    with open(out, "w") as f:
+        json.dump(dict(peak=tr["peak"], flops=tr["flops"],
+                       bytes=tr["bytes"], args=tr["arg_parts"],
+                       wall=time.perf_counter() - t0), f)
+
+
+def print_dryrun_cells(got: dict) -> None:
+    """(a): each production record's memory, FLOPs, dominant term and
+    wall; any status but ok fails."""
+    for _, _, mesh in DRYRUN_CELLS:
+        for rec in got[f"cells {mesh}"]:
+            if rec["status"] != "ok":
+                fail(f"dry run (a) {rec['arch']} {rec['shape']} {mesh}: "
+                     f"{rec['status']} {rec.get('error', '')}")
+            mem, roof = rec["memory"], rec["roofline"]
+            print(f"dry run (a) {rec['arch']} {rec['shape']} on {mesh} "
+                  f"({rec['n_devices']} ranks, fake world, meta): peak "
+                  f"{mem['peak_per_device_bytes'] / 1e9:.3f} GB a rank "
+                  f"(arguments {mem['argument_bytes'] / 1e9:.3f} GB, "
+                  f"fits 80 GB {mem['fits_80gb']}), "
+                  f"{rec['cost']['flops_per_dev']:.4g} FLOPs and "
+                  f"{rec['cost']['bytes_per_dev']:.4g} bytes a rank, "
+                  f"{rec['collectives']['n_ops']} collectives, dominant "
+                  f"{roof['dominant']} (compute {roof['compute_s']:.4g} s, "
+                  f"memory {roof['memory_s']:.4g} s, collective "
+                  f"{roof['collective_s']:.4g} s, spec-sheet rates), "
+                  f"useful {roof['useful_flops_ratio']:.4f}; wall "
+                  f"{rec['wall_s']} s on this host")
+
+
+def check_dryrun_peak(predicted: dict, card) -> None:
+    """(b) One real sharded step of `dryrun_check_cfg` at 4 x 512 on a
+    (1, 1) mesh in an NCCL world of one, after a first step (the card's
+    libraries' workspaces allocated): ``max_memory_allocated`` over the
+    step, measured after ``reset_peak_memory_stats`` with the state in
+    place, less what the process holds besides the step's arguments,
+    against the dry run's peak."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.shardutil import state_shardings
+    from repro_torch.parallel import sharding as PS
+    rules = PS.make_rules(tmesh.make_mesh((1, 1), "cuda"))
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail("dry run (b): the world of one is not NCCL's")
+    cfg = dryrun_check_cfg()
+    state = tsteps.shard_state(
+        tsteps.init_state(torch.Generator(device="cuda").manual_seed(0),
+                          cfg),
+        state_shardings(tsteps.abstract_state(cfg), rules))
+    step = tsteps.make_sharded_train_step(cfg, SHARD_OPT, rules)
+    batch = train_batch(cfg, 0)
+    state, _ = step(state, batch)
+    held = [t.to_local() for t in state.params.state_dict().values()] + [
+        t.to_local() for t in (*state.opt.m.values(), *state.opt.v.values())
+    ] + [state.opt.count, state.step, *batch.values()]
+    args = sum(t.numel() * t.element_size() for t in held)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - args
+    torch.cuda.reset_peak_memory_stats()
+    (state, metrics), t_step = synced_s(lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated() - other
+    rel = abs(predicted["peak"] - peak) / peak
+    print(f"dry run (b) {cfg.name} cut to {SHARD_LAYERS} layers, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, (1, 1) mesh on {card}: predicted "
+          f"peak {predicted['peak'] / 1e9:.4f} GB (MemTracker on meta, "
+          f"{predicted['wall']:.1f} s to trace), measured "
+          f"{peak / 1e9:.4f} GB (max_memory_allocated "
+          f"{(peak + other) / 1e9:.4f} GB less {other / 1e9:.4f} GB held "
+          f"besides the step's {args / 1e9:.4f} GB of arguments; predicted "
+          f"arguments {sum(predicted['args'].values()) / 1e9:.4f} GB): "
+          f"{predicted['peak']:.0f} B against {peak} B, {rel:.3g} apart "
+          f"(at most {DRYRUN_PEAK_RTOL}); step "
+          f"{t_step:.4f} s, traced {predicted['flops']:.4g} FLOPs: "
+          f"{predicted['flops'] / t_step / 1e12:.2f} TFLOP/s; loss "
+          f"{float(metrics['loss']):.4f}")
+    if not np.isfinite(float(metrics["loss"])):
+        fail("dry run (b): the step's loss is not finite")
+    if rel > DRYRUN_PEAK_RTOL:
+        fail(f"dry run (b): predicted peak {predicted['peak']} B against "
+             f"{peak} B measured, {rel:.4f} apart")
+    del state, batch, held
+    torch.cuda.empty_cache()
+    return rules
+
+
+def check_dryrun_serve(rules, card) -> int:
+    """(c) gemma-2b as the serve sets it up (full width and depth, the
+    prefill on the flash route) on the (1, 1) mesh: the sharded prefill
+    and `DRYRUN_DECODE_STEPS` sharded decode steps bit-equal to the
+    unsharded ones; the sharded prefill's launches counted (one wgmma a
+    layer, nothing else).  Returns the wgmma launches."""
+    from repro_torch.launch.shardutil import param_shardings
+    cfg, params, prompts = serve.setup(serve.parse_args(SERVE_ARGS))
+    pcfg = dataclasses.replace(cfg, use_pallas_attn=True)
+    batch = {"tokens": prompts}
+    b, s = prompts.shape
+    want = tsteps.make_prefill_step(pcfg)(params, batch)
+    caches = T.init_caches(cfg, b, s, "cuda")
+    decode = tsteps.make_decode_step(cfg)
+    want_dec = []
+    for t in range(DRYRUN_DECODE_STEPS):
+        want_dec.append(decode(params, caches, prompts[:, t:t + 1], t)[0])
+    params = tsteps.shard_params(params, param_shardings(params, rules))
+    zero_counts()
+    got = tsteps.make_sharded_prefill_step(pcfg, rules)(params, batch)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    rows = tsteps.local_rows(rules, b, cfg)
+    caches = T.init_caches(cfg, rows, s, "cuda")
+    sdecode = tsteps.make_sharded_decode_step(cfg, rules)
+    got_dec = [sdecode(params, caches, prompts[:, t:t + 1], t)[0]
+               for t in range(DRYRUN_DECODE_STEPS)]
+    equal = torch.equal(got, want) and all(
+        torch.equal(a, w) for a, w in zip(got_dec, want_dec))
+    print(f"dry run (c) {cfg.name} serve configuration, batch {b} x {s}, "
+          f"(1, 1) mesh, NCCL world of one on {card}: sharded prefill and "
+          f"{DRYRUN_DECODE_STEPS} decode steps bit-equal to the unsharded "
+          f"{equal} (prefill max abs "
+          f"{float((got.float() - want.float()).abs().max()):.3g}); "
+          f"sharded prefill launches {counts}")
+    if not equal:
+        fail("dry run (c): the sharded serve steps differ from the "
+             "unsharded ones")
+    if counts != dict({k: 0 for k in counts},
+                      flash_attention_wgmma=cfg.n_layers):
+        fail(f"dry run (c): the sharded prefill launched {counts}, "
+             f"expected {cfg.n_layers} flash_attention_wgmma launches")
+    del params, caches, got, want
+    torch.cuda.empty_cache()
+    return counts["flash_attention_wgmma"]
+
+
+def check_dryrun_name_map(card) -> None:
+    """(d) The reduced gemma-2b's train state written on the host in the
+    JAX package's layout (`interop.save_jax_train_state`: stacked group
+    positions, JAX leaf paths), restored onto the card through the name
+    map (`interop.restore_jax_train_state`); its prefill logits against
+    `interop.params_from_numpy` of the same arrays on the card."""
+    from repro_torch import interop
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                              compute_dtype="float32")
+    host = tsteps.init_state(torch.Generator().manual_seed(3), cfg, "cpu")
+    leaves = interop.jax_leaves_from_train_state(host, cfg)
+    arrays = interop._nest({k: v.numpy() for k, v in leaves.items()})
+    tmp = tempfile.mkdtemp()
+    try:
+        ckpt = tckpt.Checkpointer(tmp, n_servers=4)
+        interop.save_jax_train_state(ckpt, 1, host, cfg)
+        state = interop.restore_jax_train_state(ckpt, cfg, device="cuda")
+        ckpt.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_params = interop.params_from_numpy(arrays["params"], cfg, "cuda")
+    prompts = torch.randint(1, cfg.vocab_size, (2, 16), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(9))
+    fwd = tsteps.make_prefill_step(cfg)
+    got, want = (fwd(p, {"tokens": prompts})
+                 for p in (state.params, want_params))
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        state.params.state_dict().values(),
+        want_params.state_dict().values()))
+    print(f"dry run (d) {cfg.name} train state through the JAX layout "
+          f"({len(leaves)} leaves) restored on {card}: prefill logits "
+          f"equal {torch.equal(got, want)}, parameters equal {same_state}, "
+          f"step {int(state.step)}")
+    if not (torch.equal(got, want) and same_state):
+        fail("dry run (d): the restored state's logits differ")
+
+
+def run_dryrun_path(card) -> int:
+    """The dry-run phase, (a)-(d) (the module docstring); the host's
+    processes run while the card checks run.  Returns (c)'s wgmma
+    launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    procs = start_dryrun_procs(tmp)
+    try:
+        predicted = finish_dryrun_procs({"predict": procs["predict"]})
+        rules = check_dryrun_peak(predicted["predict"], card)
+        launches = check_dryrun_serve(rules, card)
+        dist.destroy_process_group()
+        check_dryrun_name_map(card)
+        print_dryrun_cells(finish_dryrun_procs(
+            {k: v for k, v in procs.items() if k != "predict"}))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dry run phase on {card}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # -- flash attention and the serving path --------------------------------------
 
 
@@ -4756,9 +5069,17 @@ def time_ablate_split(cfg, log, pols, dev, card):
     back to back (median of `steady_ms`; both include the wrapper's small
     kernels), and the kernel alone by torch.profiler (`kernel_alone_ms`);
     then the differences metrics = L0 - L1, steps = L1 - L2, plan = L2 -
-    L3, dispatch = L3, in ms and as shares of L0.  Returns {policy:
-    {"queued" | "back_to_back" | "kernel_alone": [L0..L3]}}."""
+    L3, dispatch = L3, in ms and as shares of L0; for ect also the plain
+    version at each level, once.  Returns {policy: {"queued" |
+    "back_to_back" | "kernel_alone" (| "plain" for ect): [L0..L3]}}."""
     out = {}
+    t_, n_ = cfg.n_trials, cfg.n_requests
+    n_win = n_ // cfg.window_size
+    print("stream kernel phase split, ect's function bound at each level "
+          f"(T={t_}, N={n_}, M={cfg.n_servers}): " + "; ".join(
+              f"L{lv} {b[0]:.5f} ms by {b[1]} ({b[2]:,} bytes, {b[3]:.4g} "
+              "ops)" for lv, b in ((lv, ablate_bound(
+                  t_, n_, cfg.n_servers, n_win, lv)) for lv in LEVELS)))
     print(f"stream kernel phase split, shared_log on {card}: ms per launch "
           "by level, queued (back to back) [kernel alone], median of 5 "
           "[range]; metrics = L0 - L1, steps = L1 - L2, plan = L2 - L3, "
@@ -4785,6 +5106,13 @@ def time_ablate_split(cfg, log, pols, dev, card):
                     "back_to_back": [x[0] for x in b]}
         if all(x is not None for x in k):
             readings["kernel_alone"] = k
+        if p == "ect":
+            # the plain version at each level, once (the kernel table's row)
+            readings["plain"] = [once_ms(lambda: sref.sched_stream_batch_ref(
+                *kargs, **dict(kkw, ablate=lv))) for lv in LEVELS]
+            print(f"  {'':>10s} plain version: " + ", ".join(
+                f"L{lv} {v:.2f} ms" for lv, v in zip(LEVELS,
+                                                     readings["plain"])))
         for tag, r in readings.items():
             parts = (("metrics", r[0] - r[1]), ("steps", r[1] - r[2]),
                      ("plan", r[2] - r[3]), ("dispatch", r[3]))
@@ -4967,6 +5295,7 @@ def main() -> None:
         dev, card, with_domain=False)
     qwen2_launches, err_qwen2, qwen2_rows = run_qwen2_path(dev, card)
     run_sharded_train_path(card)
+    dryrun_launches = run_dryrun_path(card)
     t_flash = time_flash(dev, card)
     time_select(dev, card)
     split = time_ablate_split(cfg, log, pols, dev, card)
@@ -5025,6 +5354,7 @@ def main() -> None:
              encdec_max_abs_err=err_encdec, encdec_shapes=encdec_rows,
              qwen2_serve_launches=qwen2_launches,
              qwen2_max_abs_err=err_qwen2, qwen2_shapes=qwen2_rows,
+             dryrun_serve_launches=dryrun_launches,
              **t_flash["wgmma"]),
         dict(name="threefry2x32", route="cuda",
              source="src/repro_torch/kernels/threefry/csrc/threefry.cu",
@@ -5039,8 +5369,8 @@ def main() -> None:
 
 def main_phase(flag: str) -> None:
     """`python3 chip_smoke.py --host-path`, `--train-path`,
-    `--contract`, `--moe`, `--ssm`, `--encdec` or `--qwen2`: that phase
-    alone."""
+    `--contract`, `--moe`, `--ssm`, `--encdec`, `--qwen2`,
+    `--sharded-train` or `--dryrun`: that phase alone."""
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this run needs a card")
     card = card_line()
@@ -5060,6 +5390,11 @@ def main_phase(flag: str) -> None:
         run_encdec_path(torch.device("cuda"), card, with_domain=True)
     elif flag == "--sharded-train":
         run_sharded_train_path(card)
+    elif flag == "--dryrun":
+        sources = (fkernel.SOURCE, fkernel.WGMMA_SOURCE)
+        with ThreadPoolExecutor(len(sources)) as pool:
+            list(pool.map(_build.build, sources))
+        run_dryrun_path(card)
     elif flag == "--qwen2":
         sources = (fkernel.SOURCE, fkernel.WGMMA_SOURCE)
         with ThreadPoolExecutor(len(sources)) as pool:
@@ -5077,9 +5412,11 @@ if __name__ == "__main__":
         compare_walls(Path(sys.argv[2]))
     elif sys.argv[1:2] == ["--sweep-rank"] and len(sys.argv) == 5:
         sweep_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--dryrun-predict"] and len(sys.argv) == 3:
+        dryrun_predict_main(sys.argv[2])
     elif sys.argv[1:] in (["--host-path"], ["--train-path"], ["--contract"],
                           ["--moe"], ["--ssm"], ["--encdec"],
-                          ["--qwen2"], ["--sharded-train"]):
+                          ["--qwen2"], ["--sharded-train"], ["--dryrun"]):
         main_phase(sys.argv[1])
     else:
         main()

@@ -4,7 +4,10 @@ Two kinds: a simulation's prepared inputs (`from_prep`), and a language
 model's configuration, parameters and train state
 (`model_config_from_fields`, `lm_params_from_numpy`,
 `encdec_params_from_numpy`, `lm_state_dict_from_numpy`,
-`train_state_from_numpy`).
+`train_state_from_numpy`).  A train state also crosses as a checkpoint
+(`restore_jax_train_state`, `save_jax_train_state`) through the name map
+between the JAX package's leaf paths and the port's ``state_dict`` names
+(`port_names`, `jax_leaf_name`).
 
 The port draws the same trials as the JAX package from the same seed
 (`repro_torch.random` is its threefry, key for key), except that the
@@ -15,14 +18,16 @@ reference's prep, turns every array into numpy, and hands them to
 `from_prep`: the result feeds `core.simulate._sched_trials` and
 `_post_trials` directly.  Likewise a language model's parameters, drawn
 by the reference's ``init_lm``, load into the port's `LM` so both compute
-the same function.  This module takes numpy arrays and plain Python
-values only and imports nothing of the JAX package.  Every function lands
-its tensors on the card unless ``device="cpu"``.
+the same function.  This module takes numpy arrays, tensors and plain
+Python values only and imports nothing of the JAX package.  Every
+function lands its tensors on the card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Optional
+from collections import OrderedDict
+from types import SimpleNamespace
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,11 +58,18 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def _own(a, dev) -> torch.Tensor:
+    """A copy of ``a`` (a numpy array or a tensor) on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev, copy=True)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
 def _tensors(group, dev, index=None) -> Dict[str, torch.Tensor]:
-    """``group``'s arrays (entry ``index`` of each) on ``dev``."""
+    """``group``'s arrays or tensors (entry ``index`` of each), copied to
+    ``dev``."""
     pick = (lambda a: a) if index is None else (lambda a: a[index])
-    return {k: torch.from_numpy(np.array(pick(a))).to(dev)
-            for k, a in group.items()}
+    return {k: _own(pick(a), dev) for k, a in group.items()}
 
 
 def from_prep(*, init_loads, straggler_mask, object_ids, lengths, valid,
@@ -189,9 +201,109 @@ def train_state_from_numpy(state, cfg: ModelConfig,
     dev = resolve_device(device)
     m, v = (lm_state_dict_from_numpy(t, cfg, dev)
             for t in (state.opt.m, state.opt.v))
-    counter = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
-                                     device=dev)
+    counter = lambda a: _own(a, dev).to(torch.int32).reshape(())
     return S.TrainState(params=params_from_numpy(state.params, cfg, dev),
                         opt=O.OptState(m=m, v=v,
                                        count=counter(state.opt.count)),
                         step=counter(state.step))
+
+
+# ------------------------------------------------------------- name map
+#
+# The JAX package's parameter pytree stacks each group position's layers
+# on a leading axis: its leaf ``groups/pos_<p>/<set>/<leaf>`` holds layer
+# ``g * G + p`` (G = ``cfg.group_size``) at entry ``g``, the port's
+# ``blocks.<g*G+p>.<set>.<leaf>``; an encoder-decoder's
+# ``enc_groups/pos_0/...`` holds encoder layer ``i`` at entry ``i``, the
+# port's ``enc_blocks.<i>...``.  Every other leaf is the same name with
+# "/" for ".".  A train state's paths put ``params/``, ``opt/m/`` or
+# ``opt/v/`` before a parameter's; ``opt/count`` and ``step`` are the
+# counters.
+
+_STACKS = {"groups": "blocks", "enc_groups": "enc_blocks"}
+
+
+def port_names(path: str, cfg: ModelConfig) -> List[str]:
+    """The port's ``state_dict`` names of a JAX parameter path, one for
+    each entry of its stacked leading axis (one name for a leaf that is
+    not stacked)."""
+    parts = path.split("/")
+    if parts[0] not in _STACKS:
+        return [".".join(parts)]
+    pos = int(parts[1].removeprefix("pos_"))
+    encoder = parts[0] == "enc_groups"
+    n = cfg.n_enc_layers if encoder else cfg.n_groups
+    size = 1 if encoder else cfg.group_size
+    return [".".join([_STACKS[parts[0]], str(g * size + pos), *parts[2:]])
+            for g in range(n)]
+
+
+def jax_leaf_name(name: str, cfg: ModelConfig) -> Tuple[str, Optional[int]]:
+    """The JAX parameter path of a port ``state_dict`` name and the entry
+    of its stacked leading axis that holds it (None: not stacked); the
+    inverse of `port_names`."""
+    parts = name.split(".")
+    for stack, blocks in _STACKS.items():
+        if parts[0] == blocks:
+            size = 1 if stack == "enc_groups" else cfg.group_size
+            g, pos = divmod(int(parts[1]), size)
+            return "/".join([stack, f"pos_{pos}", *parts[2:]]), g
+    return "/".join(parts), None
+
+
+def _nest(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b/c": x}`` as nested dicts ``{"a": {"b": {"c": x}}}``."""
+    out: Dict[str, Any] = {}
+    for path, leaf in named.items():
+        node = out
+        *head, last = path.split("/")
+        for key in head:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def jax_leaves_from_train_state(state: S.TrainState, cfg: ModelConfig
+                                ) -> Dict[str, torch.Tensor]:
+    """A port train state as the JAX package's ``{path: leaf}``: each
+    stacked leaf the port's layers stacked in order, on the CPU."""
+    out: Dict[str, torch.Tensor] = OrderedDict()
+    trees = (("params", state.params.state_dict()), ("opt/m", state.opt.m),
+             ("opt/v", state.opt.v))
+    for prefix, tree in trees:
+        stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+        for name, t in tree.items():
+            path, entry = jax_leaf_name(name, cfg)
+            t = t.detach().cpu()
+            if entry is None:
+                out[f"{prefix}/{path}"] = t
+            else:
+                stacks.setdefault(f"{prefix}/{path}", {})[entry] = t
+        for path, entries in stacks.items():
+            out[path] = torch.stack([entries[g] for g in range(len(entries))])
+    out["opt/count"] = state.opt.count.detach().cpu()
+    out["step"] = state.step.detach().cpu()
+    return out
+
+
+def restore_jax_train_state(ckpt, cfg: ModelConfig, step: Optional[int] = None,
+                            device="cuda") -> S.TrainState:
+    """A checkpoint the JAX package wrote of its ``TrainState``, read by
+    the port's `checkpoint.Checkpointer` ``ckpt`` (step ``step``, the
+    latest when None), as the port's `train.TrainState` on ``device``:
+    `train_state_from_numpy` of its leaves nested by their paths."""
+    tree = _nest(ckpt.restore(step, device="cpu"))
+    state = SimpleNamespace(params=tree["params"],
+                            opt=SimpleNamespace(**tree["opt"]),
+                            step=tree["step"])
+    return train_state_from_numpy(state, cfg, device)
+
+
+def save_jax_train_state(ckpt, step: int, state: S.TrainState,
+                         cfg: ModelConfig, meta=None) -> None:
+    """Write a port train state through the port's `checkpoint.Checkpointer`
+    ``ckpt`` under the JAX package's leaf paths, its stacked leaves
+    stacked, so that the JAX package's ``Checkpointer.restore(target=
+    state)`` reads it; waits until it is written."""
+    ckpt.save(step, _nest(jax_leaves_from_train_state(state, cfg)), meta)
+    ckpt.wait_until_finished()

@@ -414,6 +414,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int,
 def _block_decode(p: Block, cache: Params, x: torch.Tensor, kind: str,
                   cfg: ModelConfig, pos: int, is_global: bool):
     # an MoE layer routes the step's B tokens as one pool
+    p = PS.at_use(p)
     if kind != "attn":
         x, state, _ = _recurrent_block(p, x, kind, cfg,
                                        _STATES[kind][0](**cache))
@@ -428,6 +429,7 @@ def _decode_layers(params: LM, caches: List[Params], tokens: torch.Tensor,
                    pos: int, cfg: ModelConfig) -> torch.Tensor:
     """Embed one token per row and run it through every layer, writing
     each layer's cache in place; returns the last layer's activations."""
+    params = PS.at_use(params)
     x = L.embed(params.embed, tokens, cfg.cdtype, scale=cfg.embed_scale)
     x = PS.constrain(x, ["batch", None, None])
     flags = group_flags(cfg).tolist()
@@ -444,6 +446,7 @@ def decode_step(params: LM, caches: List[Params], tokens: torch.Tensor,
                 pos: int, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: absolute position.  Returns
     (logits (B, 1, Vp), caches), the caches updated in place."""
+    params = PS.at_use(params)
     x = _decode_layers(params, caches, tokens, pos, cfg)
     x = L.apply_norm(cfg.norm, params.final_norm, x)
     logits = L.unembed(params.head, params.embed, x, cfg.cdtype,

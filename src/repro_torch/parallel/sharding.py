@@ -385,5 +385,8 @@ def gather_at_use(gather: Callable[[nn.Module], Any]) -> Iterator:
 def at_use(module: nn.Module) -> Any:
     """The weights of ``module`` (a block, or a model's top level) as the
     model code reads them where it uses them: ``module`` itself, or under
-    `gather_at_use` the bound gather's view of it, its weights whole."""
-    return module if _AT_USE is None else _AT_USE(module)
+    `gather_at_use` the bound gather's view of it, its weights whole (a
+    view it handed out before is returned as it is)."""
+    if _AT_USE is None or not isinstance(module, nn.Module):
+        return module
+    return _AT_USE(module)

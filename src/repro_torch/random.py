@@ -132,10 +132,49 @@ def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
     """Float32 ``a * b + c`` as XLA's CPU backend computes a multiply-add it
     contracts: ``a`` and ``b`` are float32 (tensors or numbers), so their
     product is exact in float64, and the float64 sum is rounded to
-    float32.  That is the single rounding of the exact value except where
-    the float64 sum lands on a float32 tie that the exact sum is not on
-    (a chance of about 2**-29 a multiply-add); no held draw reaches one."""
+    float32.  That is the single rounding of the exact value where the
+    float64 sum is exact; where it is not, it may round twice (a float64
+    sum that lands on a float32 tie the exact sum is not on).  The
+    polynomials below keep it (`normal` is held bit for bit over 10**6
+    draws); `uniform` takes `_fma32_odd` where its sum can round
+    (`_sum_exact`)."""
     return (a.to(F64) * b + c).to(F32)
+
+
+def _fma32_odd(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """`_fma32` rounded once whatever the float64 sum: the sum ``s`` of
+    the exact product and ``c``, its error ``e`` by Knuth's two-sum (``s +
+    e`` is the exact value), then ``s`` rounded to odd (moved one float64
+    ulp towards ``e`` where ``e != 0`` and its last bit is even), then to
+    float32.  53 bits rounded to odd, then to 24, is one correct
+    rounding."""
+    p = a.to(F64) * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, math.inf, -math.inf).to(F64)
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(F32)
+
+
+def _exponents(x: float) -> tuple:
+    """(e, u) of a nonzero float32 ``x``: ``|x| < 2**e`` and ``x`` a
+    multiple of ``2**u`` (its ulp; ``2**-149`` below the normal range)."""
+    e = math.frexp(x)[1]
+    return e, max(e - 24, -149)
+
+
+def _sum_exact(span: float, lo: float) -> bool:
+    """Is the float64 sum ``u * span + lo`` exact for every unit float
+    ``u`` (a multiple of ``2**-23`` below 1): the product a multiple of
+    ``2**(u_span - 23)`` below ``2**e_span``, so the sum needs at most
+    ``max(e_span, e_lo) + 1 - min(u_span - 23, u_lo)`` bits.  Decided on
+    the host, once a draw."""
+    if span == 0.0 or lo == 0.0:
+        return True
+    (es, us), (el, ul) = _exponents(span), _exponents(lo)
+    return max(es, el) + 1 - min(us - 23, ul) <= 53
 
 
 def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
@@ -143,12 +182,14 @@ def uniform(keys: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     """``jax.random.uniform`` in float32: (..., *shape) in
     ``[minval, maxval)``, ``max(minval, u * (maxval - minval) + minval)``
     with the multiply-add rounded once, as XLA's CPU backend computes
-    it."""
+    it: the float64 sum's one cast where it is exact (`_sum_exact`: every
+    draw of the simulation), else rounded to odd first (`_fma32_odd`)."""
     shape = _shape(shape)
     lo, hi = _f32(minval), _f32(maxval)
     span = _f32(np.float32(hi) - np.float32(lo))
     u = _unit_floats(keys, shape)
-    return torch.clamp_min(_fma32(u, span, lo), lo)
+    fma = _fma32 if _sum_exact(span, lo) else _fma32_odd
+    return torch.clamp_min(fma(u, span, lo), lo)
 
 
 # XLA's ErfInv for float32 (M. Giles, "Approximating the erfinv

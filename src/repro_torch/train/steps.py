@@ -52,6 +52,15 @@ tokens globally (``dispatch="global"``), which spans every rank's
 tokens; the gradients then need no sum.  An encoder-decoder is not
 trained sharded.  `gather_state` makes the whole, unsharded state of a
 sharded one (the checkpoint's format).
+
+``make_sharded_prefill_step`` and ``make_sharded_decode_step`` serve
+under a mesh the same way, with no autograd: parameters placed by
+`shard_params`, the batch split as the train step splits it, each
+block's weights gathered whole at use; a rank returns its rows' logits,
+and the decode step updates the caches of its rows (`local_rows`),
+which the rank holds whole (the JAX package's cache roles put the
+sequence on ``model``, along which the port replicates compute).  They
+refuse an encoder-decoder too.
 """
 
 from __future__ import annotations
@@ -188,22 +197,31 @@ def _whole(dt: DTensor) -> torch.Tensor:
     return t.clone() if t is dt.to_local() else t
 
 
+def shard_params(params: nn.Module, shardings: Dict) -> nn.Module:
+    """``params`` (an `LM`, whole, alike on every rank) placed by
+    ``shardings`` (`launch.shardutil.param_shardings`, or a
+    `state_shardings`' params): its parameters become DTensors in the
+    module itself, which it takes over; returns it."""
+    dts = OrderedDict(
+        (k, _distribute(p.detach(), shardings[k].mesh,
+                        shardings[k].placements))
+        for k, p in params.state_dict().items())
+    params.load_state_dict(dts, assign=True)
+    return params
+
+
 def shard_state(state: TrainState, shardings: TrainState) -> TrainState:
     """``state`` (whole, alike on every rank) placed by ``shardings``
     (`launch.shardutil.state_shardings`): the parameters become DTensors
     in ``state``'s own module (which it takes over), m and v dicts of
     DTensors, the counters stay plain."""
-    dts = OrderedDict(
-        (k, _distribute(p.detach(), shardings.params[k].mesh,
-                        shardings.params[k].placements))
-        for k, p in state.params.state_dict().items())
-    state.params.load_state_dict(dts, assign=True)
+    params = shard_params(state.params, shardings.params)
     # keyed in the parameters' order on every rank (a restored state's
     # moments come in another), so every rank gathers them alike
     moment = lambda tree: {k: _distribute(tree[k], shardings.params[k].mesh,
                                           shardings.params[k].placements)
-                           for k in dts}
-    return TrainState(params=state.params,
+                           for k in params.state_dict()}
+    return TrainState(params=params,
                       opt=O.OptState(m=moment(state.opt.m),
                                      v=moment(state.opt.v),
                                      count=state.opt.count),
@@ -247,6 +265,13 @@ def batch_split(rules: PS.MeshRules, rows: int,
         index = index * rules.axis_size(a) + coord[a]
     return PS.BatchSplit(tuple(mesh.get_group(a) for a in rules.batch_axes),
                          n, index)
+
+
+def local_rows(rules: PS.MeshRules, rows: int, cfg: ModelConfig) -> int:
+    """The rows of a global batch of ``rows`` that this rank computes
+    (and whose decode caches it holds) under the sharded steps."""
+    split = batch_split(rules, rows, cfg)
+    return rows if split is None else rows // split.n
 
 
 def _slice(batch: Dict[str, torch.Tensor],
@@ -345,6 +370,27 @@ class _GatherAtUse(torch.autograd.Function):
         return (None, None, *_shard_grads(grads, ctx.metas, ctx.batch_dims))
 
 
+def _gatherer(params: nn.Module,
+              whole: Callable[[list], Iterable[torch.Tensor]]
+              ) -> Callable[[nn.Module], "_Gathered"]:
+    """The gather that `parallel.sharding.gather_at_use` binds for a
+    sharded step over ``params``: a module's leaf sets as dicts of whole
+    weights, ``whole(keys)`` giving them for the ``state_dict`` names
+    ``keys``, in order."""
+    prefix = {id(m): name + "." if name else ""
+              for name, m in params.named_modules()}
+
+    def gather(module: nn.Module) -> _Gathered:
+        sets = {c: list(m.keys()) for c, m in module.named_children()
+                if isinstance(m, nn.ParameterDict)}
+        it = iter(whole([f"{prefix[id(module)]}{c}.{k}"
+                         for c, ks in sets.items() for k in ks]))
+        return _Gathered(module, {c: {k: next(it) for k in ks}
+                                  for c, ks in sets.items()})
+
+    return gather
+
+
 class _Gathered:
     """What the model code reads of a module under the sharded step: its
     leaf sets (``nn.ParameterDict``s) as dicts of whole weights, anything
@@ -370,18 +416,13 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     ``rules.mesh`` (the module docstring).  Every rank of the mesh calls
     it with the same global batch and gets the same metrics; the state's
     shards are updated in place."""
-    if cfg.enc_dec:
-        raise ValueError(f"{cfg.name} is an encoder-decoder: the sharded "
-                         "step trains decoder LMs (launch/train.py "
-                         "refuses an encoder-decoder too)")
+    _refuse_encdec(cfg, "train step")
     loss_fn = loss_fn_for(cfg)
     mesh = rules.mesh
     mesh_groups = tuple(mesh.get_group(i) for i in range(mesh.ndim))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         sharded = state.params.state_dict()
-        prefix = {id(m): name + "." if name else ""
-                  for name, m in state.params.named_modules()}
         # the local shards, leaves of this step's graph
         shards = {k: p.to_local().detach().requires_grad_()
                   for k, p in sharded.items()}
@@ -389,19 +430,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
         batch_dims = frozenset(() if split is None else
                                (mesh.mesh_dim_names.index(a)
                                 for a in rules.batch_axes))
-
-        def gather(module: nn.Module) -> _Gathered:
-            sets = {c: list(m.keys()) for c, m in module.named_children()
-                    if isinstance(m, nn.ParameterDict)}
-            keys = [f"{prefix[id(module)]}{c}.{k}"
-                    for c, ks in sets.items() for k in ks]
-            whole = iter(_GatherAtUse.apply(
-                tuple((sharded[k].device_mesh, sharded[k].placements)
-                      for k in keys), batch_dims,
-                *(shards[k] for k in keys)))
-            return _Gathered(module, {c: {k: next(whole) for k in ks}
-                                      for c, ks in sets.items()})
-
+        gather = _gatherer(state.params, lambda keys: _GatherAtUse.apply(
+            tuple((sharded[k].device_mesh, sharded[k].placements)
+                  for k in keys), batch_dims, *(shards[k] for k in keys)))
         names = list(sharded)
         with PS.use_mesh_rules(rules), PS.split_batch(split), \
                 PS.gather_at_use(gather), torch.enable_grad():
@@ -460,6 +491,62 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
     @torch.no_grad()
     def decode(params, caches, tokens, pos):
         return step(params, caches, tokens, pos, cfg)
+
+    return decode
+
+
+def _refuse_encdec(cfg: ModelConfig, what: str) -> None:
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: the sharded "
+                         f"{what} runs decoder LMs (launch/train.py "
+                         "refuses an encoder-decoder too)")
+
+
+def _serve_gather(params: nn.Module) -> Callable[[nn.Module], _Gathered]:
+    """`_gatherer` over ``params``' DTensors with no autograd: each leaf
+    gathered whole from this rank's shard."""
+    sharded = params.state_dict()
+    return _gatherer(params, lambda keys: [
+        _gather(sharded[k].to_local(), sharded[k].device_mesh,
+                sharded[k].placements) for k in keys])
+
+
+def make_sharded_prefill_step(cfg: ModelConfig, rules: PS.MeshRules
+                              ) -> Callable:
+    """`make_prefill_step` over parameters placed by `shard_params` on
+    ``rules.mesh``: every rank calls it with the same global batch and
+    gets the logits of its rows (`batch_split`: its slice along the
+    batch axes, or the whole batch), each block's weights gathered whole
+    at use, under ``torch.no_grad``."""
+    _refuse_encdec(cfg, "prefill step")
+
+    @torch.no_grad()
+    def prefill_step(params: T.LM, batch: Dict[str, torch.Tensor]):
+        split = batch_split(rules, batch["tokens"].shape[0], cfg)
+        with PS.use_mesh_rules(rules), PS.split_batch(split), \
+                PS.gather_at_use(_serve_gather(params)):
+            return T.forward_train(params, _slice(batch, split), cfg)
+
+    return prefill_step
+
+
+def make_sharded_decode_step(cfg: ModelConfig, rules: PS.MeshRules
+                             ) -> Callable:
+    """`make_decode_step` over parameters placed by `shard_params`: every
+    rank calls it with the same global tokens (B, 1) and the decode
+    caches of its own rows (`local_rows` of B; `transformer.init_caches`
+    of that many rows), which it updates in place, and gets its rows'
+    logits and caches."""
+    _refuse_encdec(cfg, "decode step")
+
+    @torch.no_grad()
+    def decode(params: T.LM, caches, tokens: torch.Tensor, pos: int):
+        split = batch_split(rules, tokens.shape[0], cfg)
+        with PS.use_mesh_rules(rules), PS.split_batch(split), \
+                PS.gather_at_use(_serve_gather(params)):
+            return T.decode_step(params, caches,
+                                 _slice({"tokens": tokens}, split)["tokens"],
+                                 pos, cfg)
 
     return decode
 

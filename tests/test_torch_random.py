@@ -26,6 +26,11 @@ from repro_torch.kernels.threefry import ops as tops
 from repro_torch.kernels.threefry.ref import threefry2x32
 from torch_jax_release import release_compiled_programs  # noqa: F401
 
+try:
+    from hypothesis import example
+except ImportError:      # conftest's stand-in: its @given skips anyway
+    example = lambda **_: (lambda fn: fn)  # noqa: E731
+
 SEEDS = [0, 1, 2024, -3, 2 ** 31 + 7, 2 ** 40 + 11]
 
 
@@ -124,6 +129,9 @@ def test_uniform(lo, hi):
 @settings(max_examples=40, deadline=None)
 @given(seed=st.integers(0, 2 ** 32 - 1), lo=st.floats(-1e3, 1e3),
        width=st.floats(1e-3, 1e3), n=st.integers(1, 64))
+# a tiny lo: the float64 sum rounds, and a cast of it alone rounds three
+# of these 16 draws twice (ROADMAP Queue C)
+@example(seed=0, lo=7.6e-33, width=3.0, n=16)
 def test_uniform_property(seed, lo, width, n):
     hi = lo + width
     got = random.uniform(random.key(seed, device="cpu"), (n,), lo, hi)

@@ -132,22 +132,6 @@ def _spec(p) -> tuple:
     return tuple(p)
 
 
-def _port_names(path: str, cfg) -> list:
-    """The port's ``state_dict`` names of a JAX parameter path: a stacked
-    group position's leaf stands for one layer a group (the decoder's
-    ``groups`` -> ``blocks``, an encoder's ``enc_groups`` ->
-    ``enc_blocks``)."""
-    parts = path.split("/")
-    if parts[0] not in ("groups", "enc_groups"):
-        return [".".join(parts)]
-    stack = "blocks" if parts[0] == "groups" else "enc_blocks"
-    pos = int(parts[1].removeprefix("pos_"))
-    n = cfg.n_groups if parts[0] == "groups" else cfg.n_enc_layers
-    size = cfg.group_size if parts[0] == "groups" else 1
-    return [".".join([stack, str(g * size + pos), *parts[2:]])
-            for g in range(n)]
-
-
 def _ref_by_port_name(tree, cfg, fn):
     """``fn(path, leaf)`` of every leaf of a reference pytree, keyed by the
     port's names, its stacked leading entry dropped."""
@@ -155,7 +139,7 @@ def _ref_by_port_name(tree, cfg, fn):
     for kp, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         path = simple_keystr(kp)
         stacked = path.split("/")[0] in ("groups", "enc_groups")
-        for name in _port_names(path, cfg):
+        for name in interop.port_names(path, cfg):
             out[name] = fn(path, leaf, stacked)
     return out
 

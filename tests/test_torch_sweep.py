@@ -295,7 +295,9 @@ def test_no_collective_but_all_gather():
     `train/compression.py` call: gradient sums, held to tolerances in
     tests/test_torch_sharding.py, and integer and max reductions, exact
     in any order), and `launch/train.py`'s world setup, checkpoint
-    barriers and resume broadcast."""
+    barriers and resume broadcast.  The dry run (`launch/dryrun.py`)
+    starts its fake world and reads a counted collective's group ranks;
+    it issues none."""
     sweep = {"all_gather", "get_backend", "get_world_size",
              "is_initialized", "init_process_group", "HashStore"}
     allowed = {
@@ -305,7 +307,10 @@ def test_no_collective_but_all_gather():
         "launch/train.py": {"init_process_group", "is_initialized",
                             "get_world_size", "get_rank", "barrier",
                             "broadcast_object_list",
-                            "destroy_process_group"}}
+                            "destroy_process_group"},
+        "launch/dryrun.py": {"init_process_group", "is_initialized",
+                             "get_backend", "get_world_size", "HashStore",
+                             "get_process_group_ranks"}}
     src = ROOT / "src" / "repro_torch"
     seen = set()
     for p in src.rglob("*.py"):

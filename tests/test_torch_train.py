@@ -251,17 +251,6 @@ def test_lr_schedule_matches_jax():
         assert _rel(got, want) < OPT_RTOL or got == want == 0.0, step
 
 
-def _port_name(path: str, cfg) -> list:
-    """The port's names of a JAX parameter path: a group position's leaf
-    stands for one layer a group."""
-    parts = path.split("/")
-    if parts[0] != "groups":
-        return [".".join(parts)]
-    pos = int(parts[1].removeprefix("pos_"))
-    return [".".join(["blocks", str(g * cfg.group_size + pos), *parts[2:]])
-            for g in range(cfg.n_groups)]
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decay_mask_name_for_name(arch):
     jcfg, jstate, tcfg, _ = _setup(arch)
@@ -269,7 +258,7 @@ def test_decay_mask_name_for_name(arch):
     decisions = {}
     for kp, _ in flat:
         path = simple_keystr(kp)
-        for name in _port_name(path, tcfg):
+        for name in interop.port_names(path, tcfg):
             decisions[name] = JO._decay_mask(path)
     names = list(_port_state(arch).params.state_dict())
     assert sorted(decisions) == sorted(names)
